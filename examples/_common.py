@@ -11,7 +11,7 @@ flowers, example_tv_inpaint.m:5-6 lion+maske2,
 example_multilabel_fast.m:3 junction_gray).  ``image="synthetic"`` keeps
 the pure-synthetic piecewise-smooth pattern.  Every script accepts
 --size / --cpu so the same code runs as a quick CPU demo or a full-size
-TPU workload.
+run on the accelerator.
 """
 
 from __future__ import annotations
@@ -29,18 +29,11 @@ def load_fixture_image(name="cow", size=None, gray=True):
     [0, 1], shape (ny, nx) when gray else (ny, nx, 3).  ``size`` resizes:
     an int means (size, size), a (ny, nx) tuple a rectangle.  Matches the
     role of the reference's imread('images/<name>.png')."""
-    from PIL import Image
+    from prost_tpu.util.images import load_image
 
-    im = Image.open(os.path.join(_DATA_DIR, f"{name}.png"))
-    if gray:
-        im = im.convert("L")
-    else:
-        im = im.convert("RGB")
-    if size is not None:
-        if np.isscalar(size):
-            size = (size, size)
-        im = im.resize((size[1], size[0]), Image.BILINEAR)  # PIL: (w, h)
-    return np.asarray(im, np.float64) / 255.0
+    if size is not None and np.isscalar(size):
+        size = (size, size)
+    return load_image(os.path.join(_DATA_DIR, f"{name}.png"), size, gray)
 
 
 def fixture_or_synthetic(name, ny, nx, nc=1, seed=42):
@@ -87,10 +80,16 @@ def unflatten_image(v, ny, nx, nc=1):
     return np.asarray(v).reshape(nc, nx, ny).transpose(2, 1, 0)
 
 
-def force_cpu():
+def setup_jax(cpu=False):
+    """Select the CPU when asked and turn on the persistent compile cache
+    (``prost_tpu.config.use_compile_cache``)."""
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
+    from prost_tpu.config import use_compile_cache
+
+    if cpu:
+        jax.config.update("jax_platforms", "cpu")
+    use_compile_cache()
 
 
 def add_std_args(ap, size=128):

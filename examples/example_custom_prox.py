@@ -20,15 +20,14 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from _common import force_cpu
+from _common import setup_jax
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
-    if args.cpu:
-        force_cpu()
+    setup_jax(cpu=args.cpu)
 
     import jax.numpy as jnp
 

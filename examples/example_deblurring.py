@@ -20,7 +20,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from _common import (add_std_args, fixture_or_synthetic, flatten_image,
-                     force_cpu)
+                     setup_jax)
 
 
 def motion_kernel(length=9, angle_deg=45.0):
@@ -79,7 +79,7 @@ def run(size=128, max_iters=25000, verbose=True, image="flowers"):
     prob = pt.MinProblem([u], [v, g])
     prob.add_function(v, function.sum_1d("square", 1, f_blurred, lmb))
     prob.add_function(g, function.sum_norm2(2, False, "abs"))
-    # native conv block (lax.conv on the MXU) instead of the reference's
+    # native conv block (lax.conv_general_dilated) instead of the reference's
     # sparse convmtx2 matrix; block.sparse(B) gives the identical operator
     prob.add_constraint(u, v, block.conv2d(nx, ny, 1, kernel))
     prob.add_constraint(u, g, block.gradient2d(nx, ny, 1))
@@ -109,8 +109,7 @@ def run(size=128, max_iters=25000, verbose=True, image="flowers"):
 
 def main():
     args = add_std_args(argparse.ArgumentParser()).parse_args()
-    if args.cpu:
-        force_cpu()
+    setup_jax(cpu=args.cpu)
     run(size=args.size, max_iters=args.max_iters or 25000)
     return 0
 

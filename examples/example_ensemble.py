@@ -17,7 +17,7 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from _common import add_std_args, force_cpu, synthetic_image, flatten_image
+from _common import add_std_args, setup_jax, synthetic_image, flatten_image
 
 
 def build_problems(size, batch, lmb=16.0):
@@ -91,8 +91,7 @@ def main():
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--iters", type=int, default=500)
     args = ap.parse_args()
-    if args.cpu:
-        force_cpu()
+    setup_jax(cpu=args.cpu)
     run(size=args.size, batch=args.batch, iters=args.iters)
     return 0
 

@@ -28,7 +28,7 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from _common import add_std_args, force_cpu, load_fixture_image, synthetic_image
+from _common import add_std_args, setup_jax, load_fixture_image, synthetic_image
 from example_multilabel_fast import unaries
 
 
@@ -76,12 +76,11 @@ def run(size=64, L=8, max_iters=2000, verbose=True, image="cow",
         if verbose:
             print(f"  cb it={it}: label-sum violation {violation:.3e}")
         if out_dir is not None:
-            from PIL import Image
+            from prost_tpu.util.images import write_png
 
             os.makedirs(out_dir, exist_ok=True)
-            Image.fromarray(
-                (np.clip(panel, 0, 1) * 255 + 0.5).astype(np.uint8)
-            ).save(os.path.join(out_dir, f"iter_{it:06d}.png"))
+            write_png(os.path.join(out_dir, f"iter_{it:06d}.png"),
+                      (np.clip(panel, 0, 1) * 255 + 0.5).astype(np.uint8))
         panels.append((it, panel))
         return (stop_at_violation is not None
                 and violation < stop_at_violation)
@@ -113,8 +112,7 @@ def main():
                     help="force convergence when the per-pixel label-sum "
                          "violation drops below this")
     args = ap.parse_args()
-    if args.cpu:
-        force_cpu()
+    setup_jax(cpu=args.cpu)
     image = None if args.image == "synthetic" else args.image
     run(size=args.size, L=args.labels, max_iters=args.max_iters or 2000,
         image=image, out_dir=args.out_dir,

@@ -21,7 +21,7 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from _common import add_std_args, force_cpu, load_fixture_image, synthetic_image
+from _common import add_std_args, setup_jax, load_fixture_image, synthetic_image
 
 
 def unaries(im, L):
@@ -95,8 +95,7 @@ def main():
                     help="fixture image name (data/<name>.png) or "
                          "'synthetic'")
     args = ap.parse_args()
-    if args.cpu:
-        force_cpu()
+    setup_jax(cpu=args.cpu)
     image = None if args.image == "synthetic" else args.image
     run(size=args.size, L=args.labels, max_iters=args.max_iters or 5000,
         image=image)

@@ -21,7 +21,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from _common import (add_std_args, fixture_or_synthetic, flatten_image,
-                     force_cpu)
+                     setup_jax)
 
 
 def run(size=128, max_iters=2000, verbose=True, image="house"):
@@ -74,8 +74,7 @@ def run(size=128, max_iters=2000, verbose=True, image="house"):
 
 def main():
     args = add_std_args(argparse.ArgumentParser()).parse_args()
-    if args.cpu:
-        force_cpu()
+    setup_jax(cpu=args.cpu)
     run(size=args.size, max_iters=args.max_iters or 2000)
     return 0
 

@@ -17,7 +17,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from _common import (add_std_args, fixture_or_synthetic, flatten_image,
-                     force_cpu)
+                     setup_jax)
 
 
 def run(size=128, max_iters=10000, gap_tol=1e-5, verbose=True,
@@ -90,8 +90,7 @@ def main():
     ap = add_std_args(argparse.ArgumentParser(), size=256)
     ap.add_argument("--gap-tol", type=float, default=1e-5)
     args = ap.parse_args()
-    if args.cpu:
-        force_cpu()
+    setup_jax(cpu=args.cpu)
     out = run(size=args.size, max_iters=args.max_iters or 10000,
               gap_tol=args.gap_tol)
     return 0 if out["gap_per_px"] < args.gap_tol else 1

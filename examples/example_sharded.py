@@ -1,18 +1,15 @@
-"""Multi-chip solving: spatial sharding and hand-scheduled halo exchange.
+"""Multi-device solving: one big ROF problem with its pixel axis sharded.
 
 No reference counterpart — the reference is single-GPU (SURVEY.md §2.8);
-this demonstrates the framework's scale-out layer on one big ROF problem:
+this demonstrates the framework's scale-out layer: ``ShardedPDHG`` puts
+named shardings on the state vectors and lets XLA's SPMD partitioner place
+the collectives (halo exchanges for the gradient stencils, all-reduces for
+the residual norms).  The same problem also runs unsharded on one device,
+and the two trajectories must agree.
 
-1. ``ShardedPDHG``      — annotate shardings, let XLA's SPMD partitioner
-                          place the collectives (the scaling-book recipe).
-2. ``ShardedFusedROF``  — the hand-scheduled alternative: the fused
-                          Pallas chunk kernel under shard_map with one
-                          explicit ppermute halo exchange + one 4-scalar
-                          psum per residual_iter chunk.
-
-Run on real multi-chip hardware as-is; on a single host, pass --virtual N
+Run on multi-device hardware as-is; on a single host, pass --virtual N
 to emulate an N-device mesh on CPU (the same SPMD program, compiled for N
-host devices — how the test suite validates all sharded paths).
+host devices — how the test suite validates the sharded path).
 
 Usage: python examples/example_sharded.py [--size N] [--virtual N] [--cpu]
 """
@@ -25,21 +22,18 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from _common import add_std_args, flatten_image, force_cpu, synthetic_image
+from _common import add_std_args, flatten_image, setup_jax, synthetic_image
 
 
-def run(size=256, n_shards=None, max_iters=2000, verbose=True,
-        interpret=None):
+def run(size=256, n_shards=None, max_iters=2000, verbose=True):
     import jax
 
     import prost_tpu as pt
     from prost_tpu import block, function
-    from prost_tpu.backend.pdhg import PDHGOptions
-    from prost_tpu.parallel import (ShardedFusedROF, ShardedPDHG, make_mesh)
+    from prost_tpu.backend.pdhg import BackendPDHG, PDHGOptions
+    from prost_tpu.parallel import ShardedPDHG, make_mesh
 
     n_shards = n_shards or len(jax.devices())
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
     mesh = make_mesh((n_shards,), axis_names=("sp",))
 
     nx = ny = size
@@ -56,10 +50,7 @@ def run(size=256, n_shards=None, max_iters=2000, verbose=True,
     prob.add_dual_pair(u, q, block.gradient2d(nx, ny, 1))
     core = prob.finalize()
 
-    # halo width = 2*residual_iter + 2 rows must fit in one shard;
-    # shrink the chunk for small demo sizes
-    ri = min(10, max(1, (nx // n_shards - 2) // 2))
-    popts = PDHGOptions(stepsize="boyd", residual_iter=ri,
+    popts = PDHGOptions(stepsize="boyd", residual_iter=10,
                         scale_steps_operator=False)
     sopts = pt.SolverOptions(verbose=False, tol_rel_primal=1e-5,
                              tol_rel_dual=1e-5, tol_abs_primal=1e-5,
@@ -67,11 +58,10 @@ def run(size=256, n_shards=None, max_iters=2000, verbose=True,
 
     results = {}
     for name, make in [
-        ("auto-SPMD (ShardedPDHG)",
+        (f"sharded over {n_shards} devices (ShardedPDHG)",
          lambda: ShardedPDHG(core, popts, sopts, mesh=mesh)),
-        ("halo-scheduled (ShardedFusedROF)",
-         lambda: ShardedFusedROF(core, popts, sopts, mesh,
-                                 interpret=interpret)),
+        ("one device (BackendPDHG)",
+         lambda: BackendPDHG(core, popts, sopts)),
     ]:
         backend = make()
         state = backend.initial_state()
@@ -82,16 +72,15 @@ def run(size=256, n_shards=None, max_iters=2000, verbose=True,
         it = int(np.asarray(state.iteration))
         results[name] = np.asarray(state.x)
         if verbose:
-            print(f"{name}: {it} its over {n_shards} shards in {dt:.3f}s "
-                  f"({it / dt:.0f} it/s), "
+            print(f"{name}: {it} its in {dt:.3f}s ({it / dt:.0f} it/s), "
                   f"primal res {float(state.primal_residual):.3e}")
 
-    vals = list(results.values())
-    diff = float(np.max(np.abs(vals[0] - vals[1])))
+    sharded, single = results.values()
+    diff = float(np.max(np.abs(sharded - single)))
     if verbose:
-        print(f"max |auto - halo| = {diff:.2e} (same algorithm, same "
-              "trajectory)")
-    return {"u": vals[1], "diff": diff, "n_shards": n_shards}
+        print(f"max |sharded - one device| = {diff:.2e} (same algorithm, "
+              "same trajectory)")
+    return {"u": sharded, "diff": diff, "n_shards": n_shards}
 
 
 def main():
@@ -104,9 +93,7 @@ def main():
             os.environ.get("XLA_FLAGS", "")
             + f" --xla_force_host_platform_device_count={args.virtual}"
         )
-        force_cpu()
-    elif args.cpu:
-        force_cpu()
+    setup_jax(cpu=args.cpu or bool(args.virtual))
     run(size=args.size, n_shards=args.virtual,
         max_iters=args.max_iters or 2000)
     return 0

@@ -20,7 +20,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from _common import (add_std_args, fixture_or_synthetic, flatten_image,
-                     force_cpu, load_fixture_image)
+                     setup_jax, load_fixture_image)
 
 
 def run(size=128, max_iters=50000, verbose=True, image="lion"):
@@ -80,8 +80,7 @@ def run(size=128, max_iters=50000, verbose=True, image="lion"):
 
 def main():
     args = add_std_args(argparse.ArgumentParser()).parse_args()
-    if args.cpu:
-        force_cpu()
+    setup_jax(cpu=args.cpu)
     run(size=args.size, max_iters=args.max_iters or 50000)
     return 0
 

@@ -16,7 +16,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from _common import (add_std_args, fixture_or_synthetic, flatten_image,
-                     force_cpu)
+                     setup_jax)
 
 
 def run(size=128, max_iters=50000, verbose=True, image="fisch"):
@@ -68,8 +68,7 @@ def run(size=128, max_iters=50000, verbose=True, image="fisch"):
 
 def main():
     args = add_std_args(argparse.ArgumentParser()).parse_args()
-    if args.cpu:
-        force_cpu()
+    setup_jax(cpu=args.cpu)
     run(size=args.size, max_iters=args.max_iters or 50000)
     return 0
 

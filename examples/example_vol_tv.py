@@ -7,8 +7,7 @@ example; this one denoises a stack of L noisy slices jointly:
     min_u  lmb/2 ||u - f||^2 + ||grad3 u||_{2,1}
 
 where grad3 couples x/y (Neumann) and the slice axis (Dirichlet far
-boundary).  On TPU the solve routes through the fused volumetric Pallas
-kernel (prost_tpu/ops/fused_vol.py), whole-volume or nx-banded by size.
+boundary).
 
 Usage: python examples/example_vol_tv.py [--size N] [--slices L] [--cpu]
 """
@@ -21,7 +20,7 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from _common import add_std_args, force_cpu, synthetic_image
+from _common import add_std_args, setup_jax, synthetic_image
 
 
 def run(size=64, L=8, max_iters=10000, verbose=True):
@@ -72,8 +71,7 @@ def main():
     ap = add_std_args(argparse.ArgumentParser(), size=64)
     ap.add_argument("--slices", type=int, default=8)
     args = ap.parse_args()
-    if args.cpu:
-        force_cpu()
+    setup_jax(cpu=args.cpu)
     run(size=args.size, L=args.slices, max_iters=args.max_iters or 10000)
     return 0
 

@@ -1,9 +1,9 @@
-"""prost_tpu — a TPU-native framework for large-scale convex-concave
+"""prost_tpu — a JAX framework for large-scale convex-concave
 saddle-point problems with proximal structure:
 
     min_x max_y  g(x) + <Kx, y> - f*(y)
 
-Re-designed from scratch for JAX/XLA/Pallas with the capabilities of the
+Re-designed from scratch for JAX/XLA with the capabilities of the
 reference CUDA/MATLAB implementation (tum-vision/prost, mounted at
 /root/reference): block-structured linear operators, a zoo of proximal
 operators, PDHG and graph-projection ADMM backends with diagonal

@@ -9,7 +9,7 @@
 //
 // Exposed as a plain C ABI, loaded from Python via ctypes (host.py);
 // everything here runs on the host CPU at problem-construction time — the
-// device compute path is JAX/XLA/Pallas.
+// device compute path is JAX/XLA.
 
 #include <algorithm>
 #include <cmath>

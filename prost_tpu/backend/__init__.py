@@ -1,4 +1,4 @@
-"""Algorithm backends (TPU-native counterpart of
+"""Algorithm backends (counterpart of
 /root/reference/src/backend)."""
 
 from .admm import ADMMOptions, BackendADMM

@@ -1,7 +1,7 @@
 """Graph-projection ADMM backend.
 
-TPU-native re-design of /root/reference/src/backend/backend_admm.cu: the
-~15 zip-iterator kernels per iteration become one jitted iteration function
+Re-design of /root/reference/src/backend/backend_admm.cu: the ~15
+zip-iterator kernels per iteration become one jitted iteration function
 (XLA fuses the elementwise work into the K / K^T applies); the CGLS inner
 solve is a nested ``lax.while_loop`` (see cgls.py).
 
@@ -74,13 +74,11 @@ class ADMMOptions:
     # "dct"  = EXACT graph projection for lone-gradient2d problems with
     # constant preconditioner: (I + c^2 G^T G) u = rhs is a screened
     # Neumann-Laplacian solve, diagonalized by DCT-II (no reference
-    # analog — a TPU-native direct O(n log n) alternative to the CG loop);
+    # analog — a direct O(n log n) alternative to the CG loop);
     # "cheby" = fixed-coefficient Chebyshev iteration on the same system
-    # (spectrum [1, 1 + 8 c^2]): zero dot products, so it stays band-local
-    # in the fused banded kernel (ops/fused_admm.py) — same per-step
+    # (spectrum [1, 1 + 8 c^2]): zero dot products, same per-step
     # contraction rate as CGLS on this well-conditioned system;
-    # "auto" = cgls here; the fused backend (FusedROFADMM) resolves it to
-    # whole-plane CGLS or banded Chebyshev by VMEM fit.
+    # "auto" = cgls.
     projection: str = "auto"
     cheby_degree: int = 10
 
@@ -261,8 +259,7 @@ def _cheby_project_generic(plan, k_tilde, k_tilde_adj, d, u0, degree: int):
     from u0.  ``plan`` = (L, nx, ny, c2) is static: the spectrum bound
     1 + 8*c2 (Neumann-Laplacian eigenvalues in [0, 8) scaled by
     c2 = Sigma*Tau) folds into compile-time coefficients, so the solve has
-    NO reductions — the property that makes it band/shard-local in the
-    fused kernels (ops/fused_admm.py mirrors this algebra exactly)."""
+    NO reductions."""
     _, _, _, c2 = plan
     hi = 1.0 + 8.0 * c2
     theta = (hi + 1.0) / 2.0
@@ -290,8 +287,7 @@ def admm_residual_adapt(problem, opts: ADMMOptions, tols, q: ADMMState,
                         primal_res, primal_norm, dual_res, dual_norm):
     """Store residual norms, test convergence, and run the Boyd
     rho-adaptation with its dual-variable rescale (backend_admm.cu:632-663).
-    Shared by the generic path and the fused Pallas path (which computes
-    the norms in-kernel)."""
+    """
     tol_rel_p, tol_rel_d, tol_abs_p, tol_abs_d = tols
     eps_pri = jnp.sqrt(float(problem.nrows)) * tol_abs_p + tol_rel_p * primal_norm
     eps_dua = jnp.sqrt(float(problem.ncols)) * tol_abs_d + tol_rel_d * dual_norm

@@ -1,6 +1,6 @@
 """Conjugate-gradient least squares: min ||A x - b||^2 + shift ||x||^2.
 
-TPU-native re-design of the vendored CGLS solver the reference uses for
+Re-design of the vendored CGLS solver the reference uses for
 ADMM's graph projection (/root/reference/include/prost/cgls.hpp:223-380):
 the cuBLAS axpy/nrm2 call sequence becomes one jittable ``lax.while_loop``
 whose body is two operator applies plus fused vector arithmetic; under a

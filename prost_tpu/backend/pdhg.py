@@ -1,6 +1,6 @@
 """Primal-dual hybrid gradient (PDHG / Chambolle-Pock) backend.
 
-TPU-native re-design of /root/reference/src/backend/backend_pdhg.cu: the
+Re-design of /root/reference/src/backend/backend_pdhg.cu: the
 per-iteration sequence of ~8 fused CUDA kernels becomes a single jitted
 ``lax.while_loop`` body — XLA fuses the prox-argument arithmetic, the prox
 itself, and the residual transforms into the K / K^T applications, and the
@@ -34,9 +34,7 @@ uses the stale K^T y^{k-1} / K^T y^k pair (backend_pdhg.cu:420-431 feeds
 kty_prev_/kty_ before the swap at :377-380), and the previous iterates
 rotate EVERY iteration (the swaps at :331/:344/:366/:377) rather than
 only at residual iterations — so goldstein/boyd adaptation decisions,
-and hence whole trajectories, match the reference step for step.  The
-fused Pallas paths compute consistent-mode norms in-kernel, so this flag
-routes matched problems through the generic path.
+and hence whole trajectories, match the reference step for step.
 
 Step-size schemes (backend_pdhg.hpp:41-54):
   alg1       constant tau/sigma, theta = 1
@@ -239,8 +237,7 @@ def residual_and_adapt(problem, opts: PDHGOptions, tols, s: PDHGState,
     """Store residual norms, test convergence, and run the residual-based
     step-size adaptation (goldstein backend_pdhg.cu:443-460 / boyd
     backend_pdhg.cu:462-476).  ``it`` is the pre-increment iteration counter
-    of the residual iteration.  Shared by the generic path and the fused
-    Pallas path (which computes the norms in-kernel)."""
+    of the residual iteration."""
     s = dataclasses.replace(
         s,
         primal_residual=primal_res,

@@ -11,6 +11,23 @@ from __future__ import annotations
 import dataclasses
 
 import jax
+import jax.numpy as jnp
+
+# Every matrix product and contraction in the solver runs at full float32
+# precision.  Without it a platform may run float32 products in a reduced
+# mode (TF32 on NVIDIA tensor cores keeps ~3 decimal digits), far below the
+# 1e-5..1e-7 tolerances the solver is used at.
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def matmul(a, b):
+    """``a @ b`` at full precision of the operands' dtype."""
+    return jnp.matmul(a, b, precision=HIGHEST)
+
+
+def einsum(subscripts, *operands):
+    """``jnp.einsum`` at full precision of the operands' dtype."""
+    return jnp.einsum(subscripts, *operands, precision=HIGHEST)
 
 
 def linspace(start: float, end: float, n: int) -> list[float]:

@@ -1,4 +1,4 @@
-"""Linear-operator layer (TPU-native counterpart of
+"""Linear-operator layer (counterpart of
 /root/reference/src/linop and include/prost/linop)."""
 
 from .base import Block, DualLinearOperator, LinearOperator

@@ -1,6 +1,6 @@
 """Linear operator layer: block-structured K.
 
-TPU-native re-design of /root/reference/include/prost/linop/
+Re-design of /root/reference/include/prost/linop/
 {linearoperator.hpp, block.hpp, dual_linearoperator.hpp}:
 
 * A ``Block`` is a pure pair of functions on its local segment,

@@ -1,6 +1,6 @@
 """Concrete block types: sparse, dense, diags, kron variants, zero.
 
-TPU-native re-designs of /root/reference/src/linop/block_{sparse, dense,
+Re-designs of /root/reference/src/linop/block_{sparse, dense,
 diags, sparse_kron_id, id_kron_sparse, dense_kron_id, id_kron_dense,
 zero}.cu:
 
@@ -11,11 +11,13 @@ zero}.cu:
 * The kron blocks exploit that kron(M, I_d) / kron(I_n, M) matvecs are
   reshaped matrix products: X = x.reshape(...); Y = M @ X (or X @ M^T).
   M is stored *dense* regardless of how it was given: the per-pixel
-  coupling matrices these blocks express are small (L x L'), and on TPU a
-  small dense product on the MXU beats any scatter-based sparse kernel.
+  coupling matrices these blocks express are small (L x L'), and a small
+  dense product beats any scatter-based sparse kernel.
   (The reference's kernels walk CSR rows per thread,
   block_sparse_kron_id.cu:40-51; it also downcasts values to float in
   double mode — we keep the working dtype.)
+
+* Every matrix product runs at full precision (``common.matmul``).
 
 * BlockDiags evaluates a banded matrix as a static sum of shifted scaled
   slices (the reference walks diagonals per row from __constant__ memory,
@@ -27,7 +29,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 
-from ..common import pytree_dataclass, static_field
+from ..common import matmul, pytree_dataclass, static_field
 from ..config import dtype as config_dtype
 from .base import Block
 
@@ -121,7 +123,7 @@ class BlockSparse(Block):
 
 @pytree_dataclass
 class BlockDense(Block):
-    """Dense matrix block (block_dense.cu): straight MXU matvec."""
+    """Dense matrix block (block_dense.cu): a dense matvec."""
 
     row: int = static_field()
     col: int = static_field()
@@ -135,10 +137,10 @@ class BlockDense(Block):
         return BlockDense(row=row, col=col, nrows=m.shape[0], ncols=m.shape[1], data=m)
 
     def apply(self, x_seg):
-        return self.data @ x_seg
+        return matmul(self.data, x_seg)
 
     def apply_adjoint(self, y_seg):
-        return self.data.T @ y_seg
+        return matmul(self.data.T, y_seg)
 
     def row_sum(self, alpha: float):
         return jnp.sum(jnp.abs(self.data) ** alpha, axis=1)
@@ -233,11 +235,11 @@ class BlockKronId(Block):
 
     def apply(self, x_seg):
         X = x_seg.reshape(self.data.shape[1], self.diaglength)
-        return (self.data @ X).reshape(-1)
+        return matmul(self.data, X).reshape(-1)
 
     def apply_adjoint(self, y_seg):
         Y = y_seg.reshape(self.data.shape[0], self.diaglength)
-        return (self.data.T @ Y).reshape(-1)
+        return matmul(self.data.T, Y).reshape(-1)
 
     def row_sum(self, alpha: float):
         per_row = jnp.sum(jnp.abs(self.data) ** alpha, axis=1)
@@ -278,11 +280,11 @@ class BlockIdKron(Block):
 
     def apply(self, x_seg):
         X = x_seg.reshape(self.ncopies, self.data.shape[1])
-        return (X @ self.data.T).reshape(-1)
+        return matmul(X, self.data.T).reshape(-1)
 
     def apply_adjoint(self, y_seg):
         Y = y_seg.reshape(self.ncopies, self.data.shape[0])
-        return (Y @ self.data).reshape(-1)
+        return matmul(Y, self.data).reshape(-1)
 
     def row_sum(self, alpha: float):
         per_row = jnp.sum(jnp.abs(self.data) ** alpha, axis=1)

@@ -1,9 +1,10 @@
-"""2D convolution block: the TPU-native way to express blur operators.
+"""2D convolution block: blur operators as convolutions.
 
 The reference has no convolution block — its deblurring example builds a
 giant sparse convmtx2 matrix and multiplies with cuSPARSE
-(example_deblurring.m:33-37).  On TPU the same operator is a direct
-``lax.conv_general_dilated`` call (MXU/VPU-native, no index traffic):
+(example_deblurring.m:33-37).  Here the same operator is a direct
+``lax.conv_general_dilated`` call (no index traffic; XLA hands it to the
+platform's convolution library):
 
     apply(u)          = full 2D convolution of each channel with the kernel
                         (ny2, nx2) = (ny + ky - 1, nx + kx - 1), identical
@@ -20,7 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-from ..common import pytree_dataclass, static_field
+from ..common import HIGHEST, pytree_dataclass, static_field
 from ..config import dtype as config_dtype
 from .base import Block
 
@@ -70,6 +71,7 @@ class BlockConv2D(Block):
             window_strides=(1, 1),
             padding=padding,
             dimension_numbers=("NCHW", "OIHW", "NCHW"),
+            precision=HIGHEST,
         )
         return out[:, 0]
 

@@ -1,6 +1,6 @@
 """Gradient stencil blocks (forward differences).
 
-TPU-native counterparts of block_gradient2d.cu / block_gradient3d.cu: the
+Counterparts of block_gradient2d.cu / block_gradient3d.cu: the
 CUDA stencil kernels become shifted-subtraction on a reshaped 3D view, which
 XLA fuses/vectorizes; under sharding, halo exchange replaces the implicit
 global-memory neighbor reads (see prost_tpu/parallel).

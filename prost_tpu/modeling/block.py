@@ -105,7 +105,7 @@ def id_kron_dense(K, ncopies):
 
 def conv2d(nx, ny, L, kernel):
     """Full 2D convolution with a (ky, kx) kernel, channels independent —
-    the TPU-native replacement for the reference's sparse convmtx2 pattern
+    the replacement for the reference's sparse convmtx2 pattern
     (example_deblurring.m:33-37).  Output size (nx+kx-1)*(ny+ky-1)*L."""
     from ..linop import BlockConv2D
 

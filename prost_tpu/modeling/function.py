@@ -297,7 +297,7 @@ def _mass(n, interleaved, conjugate, cost):
 def ind_range(A, AA=None):
     """Projection onto range(A): x = A (A^T A)^{-1} A^T y (ind_range.m).
 
-    A may be dense (matvecs on the MXU) or scipy.sparse / jax BCOO —
+    A may be dense (dense matvecs) or scipy.sparse / jax BCOO —
     sparse A is kept sparse (the reference's contract: 'A must be a
     sparse matrix', ind_range.m); AA = A^T A may be precomputed."""
     def make(idx, count):

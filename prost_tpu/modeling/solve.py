@@ -24,17 +24,8 @@ class Backend:
 
     def create(self, problem, solver_opts):
         if self.kind == "pdhg":
-            # FusedROFPDHG auto-selects the fused Pallas iteration when the
-            # problem structure matches (and a TPU is present); otherwise
-            # it behaves exactly like BackendPDHG
-            from ..ops import FusedROFPDHG
-
-            return FusedROFPDHG(problem, self.opts, solver_opts)
-        # FusedROFADMM likewise auto-selects the fused chunk kernel (CGLS
-        # inner loop included) on matched structures
-        from ..ops import FusedROFADMM
-
-        return FusedROFADMM(problem, self.opts, solver_opts)
+            return BackendPDHG(problem, self.opts, solver_opts)
+        return BackendADMM(problem, self.opts, solver_opts)
 
 
 def backend_pdhg(**kw) -> Backend:

@@ -3,7 +3,7 @@
 The reference's language bridge passes problems as positional cell arrays
 (prox = {name, idx, size, diagsteps, data}, block = {name, row, col, data})
 decoded by a string->constructor registry (factory.cpp:18-134).  This
-module is that bridge's TPU-native counterpart: a JSON-able dict format
+module is that bridge's counterpart: a JSON-able dict format
 using the SAME registry names, so problem descriptions can cross process
 and language boundaries (or be stored alongside checkpoints) without
 pickling Python objects.

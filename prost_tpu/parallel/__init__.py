@@ -2,31 +2,21 @@
 spatially-sharded solving.
 
 The reference is single-process single-GPU (SURVEY.md section 2.8); this
-package is the TPU-native capability it lacks:
+package adds what it lacks:
 
 * ``mesh``     — mesh construction helpers over jax.devices().
 * ``ensemble`` — solve B independent problem instances at once: the solver
   state (and any per-instance problem data) gains a leading batch axis,
-  the PDHG/ADMM step is vmapped, and the batch axis is sharded over the
+  the PDHG step is vmapped, and the batch axis is sharded over the
   mesh ('dp'-style data parallelism over problem instances).
 * ``spatial``  — shard the long pixel axis of a single big problem over the
   mesh: state vectors get named shardings and XLA's SPMD partitioner
   inserts the halo exchanges (gradient stencils) and psums (residual norms)
   — the "annotate shardings, let the compiler place collectives" recipe.
-* ``spatial_fused`` — the hand-scheduled version for matched ROF/TV
-  structures: the fused Pallas chunk kernel under shard_map with explicit
-  ppermute halo exchange (one 2-hop exchange per residual_iter chunk
-  instead of per-iteration collectives) and psum'd in-kernel norms.
 """
 
 from .ensemble import BatchedPDHG, stack_problems
 from .mesh import make_mesh
 from .spatial import ShardedPDHG
-from .spatial_fused import (ShardedFusedADMM, ShardedFusedDeblur,
-                            ShardedFusedMultilabel, ShardedFusedROF,
-                            ShardedFusedVol,
-                            ShardedFusedTight)
 
-__all__ = ["make_mesh", "stack_problems", "BatchedPDHG", "ShardedPDHG",
-           "ShardedFusedROF", "ShardedFusedMultilabel", "ShardedFusedTight",
-           "ShardedFusedDeblur", "ShardedFusedADMM", "ShardedFusedVol"]
+__all__ = ["make_mesh", "stack_problems", "BatchedPDHG", "ShardedPDHG"]

@@ -20,7 +20,6 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax import lax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..backend.pdhg import BackendPDHG, PDHGOptions, PDHGState, pdhg_step
@@ -54,7 +53,7 @@ class BatchedPDHG:
 
     def __init__(self, problems, opts: PDHGOptions = None,
                  solver_opts: SolverOptions = None, mesh=None,
-                 axis_name: str = "dp", interpret: bool = False):
+                 axis_name: str = "dp"):
         # scale_steps_operator=False by default: per-instance normest would
         # run B host-side power iterations; pass explicit tau0/sigma0, or
         # enable it when instances share one operator
@@ -63,7 +62,6 @@ class BatchedPDHG:
         self.mesh = mesh
         self.axis_name = axis_name
         self.batch = len(problems)
-        self.interpret = interpret
         if mesh is not None and self.batch % mesh.devices.size != 0:
             raise ProstError(
                 f"BatchedPDHG: batch size {self.batch} must be divisible "
@@ -84,214 +82,6 @@ class BatchedPDHG:
             self.batched_problem = put(self.batched_problem)
             self.prox_g = put(self.prox_g)
             self.prox_fstar = put(self.prox_fstar)
-        self.rof = self._match_fused(problems, interpret)
-        self.ml = self.deblur = self.tight = self.vol = None
-        if self.rof is None:
-            self.ml = self._match_fused_ml(problems, interpret)
-        if self.rof is None and self.ml is None:
-            self.deblur = self._match_fused_deblur(problems, backends,
-                                                   interpret)
-        if self.rof is None and self.ml is None and self.deblur is None:
-            self.tight = self._match_fused_tight(problems, interpret)
-        if (self.rof is None and self.ml is None and self.deblur is None
-                and self.tight is None):
-            self.vol = self._match_fused_vol(problems, interpret)
-
-    def _match_fused(self, problems, interpret):
-        """Per-instance ROF structure matching for the batched fused Pallas
-        path (vmap over ops/fused_rof.rof_fused_chunk: the batch axis
-        becomes the kernel grid axis).  All instances must share
-        (nx, ny, dataterm); f/w/lmb/radius may differ per instance."""
-        from ..ops.fused_rof import (fits_vmem, match_rof_structure,
-                                     shard_band_count)
-
-        usable = (jax.default_backend() != "cpu") or interpret
-        if not usable or self.opts.stepsize == "alg2":
-            return None
-        if self.opts.reference_residuals:
-            return None  # fused norms are consistent-mode
-        ms = [match_rof_structure(p) for p in problems]
-        if any(m is None for m in ms):
-            return None
-        keys = {(m["nx"], m["ny"], m["dataterm"]) for m in ms}
-        if len(keys) != 1:
-            return None
-        nx, ny, dataterm = keys.pop()
-        if fits_vmem(nx, ny):
-            n_bands = 1  # whole-instance batched kernel (one grid step each)
-        else:
-            # instances too large for whole-instance VMEM residency run
-            # the banded+batched kernel (grid = (B, n_bands))
-            n_bands = shard_band_count(nx, ny,
-                                       max(int(self.opts.residual_iter), 1))
-            if n_bands is None or n_bands == 1:
-                return None  # no efficient tiling -> generic vmapped path
-        batched = {
-            "nx": nx, "ny": ny, "dataterm": dataterm, "n_bands": n_bands,
-            "f": jnp.stack([m["f"] for m in ms]),
-            "w": jnp.stack([m["w"] for m in ms]),
-            "lmb": jnp.asarray([m["lmb"] for m in ms], jnp.float32),
-            "radius": jnp.asarray([m["radius"] for m in ms], jnp.float32),
-        }
-        if self.mesh is not None:
-            batched = {
-                k: (self._put_batched(v) if hasattr(v, "shape") else v)
-                for k, v in batched.items()
-            }
-        return batched
-
-    def _match_fused_ml(self, problems, interpret):
-        """Per-instance fast-multilabel structure matching for the batched
-        fused path (grid = (B,), ops/fused_multilabel
-        .ml_fused_chunk_batched) — the natural many-instance segmentation
-        workload (segment N frames at once).  All instances must share
-        (nx, ny, L); f/radius/d_s may differ per instance.  Instances
-        above the whole-instance VMEM cap fall back to the generic
-        vmapped path (no banded+batched ml kernel yet)."""
-        from ..ops.fused_multilabel import (match_multilabel_structure,
-                                            ml_fits_vmem)
-
-        usable = (jax.default_backend() != "cpu") or interpret
-        if not usable or self.opts.stepsize == "alg2":
-            return None
-        if self.opts.reference_residuals:
-            return None
-        ms = [match_multilabel_structure(p) for p in problems]
-        if any(m is None for m in ms):
-            return None
-        keys = {(m["nx"], m["ny"], m["L"]) for m in ms}
-        if len(keys) != 1:
-            return None
-        nx, ny, L = keys.pop()
-        if not ml_fits_vmem(nx, ny, L):
-            return None
-        batched = {
-            "nx": nx, "ny": ny, "L": L,
-            "f": jnp.stack([m["f"] for m in ms]),
-            "radius": jnp.asarray([m["radius"] for m in ms], jnp.float32),
-            "d_s": jnp.asarray([m["d_s"] for m in ms], jnp.float32),
-        }
-        if self.mesh is not None:
-            batched = {
-                k: (self._put_batched(v) if hasattr(v, "shape") else v)
-                for k, v in batched.items()
-            }
-        return batched
-
-    def _match_fused_deblur(self, problems, backends, interpret):
-        """Per-instance deblur structure matching for the batched fused
-        path (grid = (B,), ops/fused_deblur.deblur_fused_chunk_batched)
-        — deblurring B frames sharing ONE blur kernel (the video
-        workload).  All instances must share (nx, ny, taps, sig_q,
-        tau_t); fb/sv/lmb/radius may differ per instance."""
-        from ..ops.fused_deblur import (deblur_fits_vmem,
-                                        match_deblur_structure)
-
-        usable = (jax.default_backend() != "cpu") or interpret
-        if not usable or self.opts.stepsize == "alg2":
-            return None
-        if self.opts.reference_residuals:
-            return None
-        ms = [match_deblur_structure(p, b.prox_g, b.prox_fstar)
-              for p, b in zip(problems, backends)]
-        if any(m is None for m in ms):
-            return None
-        keys = {(m["nx"], m["ny"], m["nx2"], m["ny2"], m["taps"],
-                 m["sig_q"], m["tau_t"]) for m in ms}
-        if len(keys) != 1:
-            return None
-        nx, ny, nx2, ny2, taps, sig_q, tau_t = keys.pop()
-        if not deblur_fits_vmem(nx2, ny2):
-            return None
-        batched = {
-            "nx": nx, "ny": ny, "nx2": nx2, "ny2": ny2, "taps": taps,
-            "sig_q": sig_q, "tau_t": tau_t,
-            "fb": jnp.stack([m["fb"] for m in ms]),
-            "sv": jnp.stack([m["sv"] for m in ms]),
-            "lmb": jnp.asarray([m["lmb"] for m in ms], jnp.float32),
-            "radius": jnp.asarray([m["radius"] for m in ms], jnp.float32),
-        }
-        if self.mesh is not None:
-            batched = {
-                k: (self._put_batched(v) if hasattr(v, "shape") else v)
-                for k, v in batched.items()
-            }
-        return batched
-
-    def _match_fused_tight(self, problems, interpret):
-        """Per-instance tight-relaxation structure matching for the
-        batched fused path (grid = (B,), ops/fused_tight
-        .tight_fused_chunk_batched) — B tight-multilabel instances
-        sharing (nx, ny, L, k, taps, consts); f/radius/d_s may differ
-        per instance.  Instances above the whole-plane VMEM cap fall
-        back to the generic vmapped path."""
-        from ..ops.fused_tight import (match_tight_structure,
-                                       tight_fits_vmem)
-
-        usable = (jax.default_backend() != "cpu") or interpret
-        if not usable or self.opts.stepsize == "alg2":
-            return None
-        if self.opts.reference_residuals:
-            return None
-        ms = [match_tight_structure(p) for p in problems]
-        if any(m is None for m in ms):
-            return None
-        keys = {(m["nx"], m["ny"], m["L"], m["k"], m["taps"], m["consts"])
-                for m in ms}
-        if len(keys) != 1:
-            return None
-        nx, ny, L, k, taps, consts = keys.pop()
-        if not tight_fits_vmem(nx, ny, L, k):
-            return None
-        batched = {
-            "nx": nx, "ny": ny, "L": L, "k": k, "taps": taps,
-            "consts": consts,
-            "f": jnp.stack([m["f"] for m in ms]),
-            "radius": jnp.asarray([m["radius"] for m in ms], jnp.float32),
-            "d_s": jnp.asarray([m["d_s"] for m in ms], jnp.float32),
-        }
-        if self.mesh is not None:
-            batched = {
-                k_: (self._put_batched(v) if hasattr(v, "shape") else v)
-                for k_, v in batched.items()
-            }
-        return batched
-
-    def _match_fused_vol(self, problems, interpret):
-        """Per-instance volumetric-TV structure matching for the batched
-        fused path (grid = (B,), ops/fused_vol.vol_fused_chunk_batched)
-        — B (L, nx, ny) volumes sharing (L, nx, ny, dataterm);
-        f/w/lmb/radius may differ per instance.  Instances above the
-        whole-volume VMEM cap fall back to the generic vmapped path."""
-        from ..ops.fused_vol import match_vol_structure, vol_fits_vmem
-
-        usable = (jax.default_backend() != "cpu") or interpret
-        if not usable or self.opts.stepsize == "alg2":
-            return None
-        if self.opts.reference_residuals:
-            return None
-        ms = [match_vol_structure(p) for p in problems]
-        if any(m is None for m in ms):
-            return None
-        keys = {(m["L"], m["nx"], m["ny"], m["dataterm"]) for m in ms}
-        if len(keys) != 1:
-            return None
-        L, nx, ny, dataterm = keys.pop()
-        if not vol_fits_vmem(L, nx, ny):
-            return None
-        batched = {
-            "L": L, "nx": nx, "ny": ny, "dataterm": dataterm,
-            "f": jnp.stack([m["f"] for m in ms]),
-            "w": jnp.stack([m["w"] for m in ms]),
-            "lmb": jnp.asarray([m["lmb"] for m in ms], jnp.float32),
-            "radius": jnp.asarray([m["radius"] for m in ms], jnp.float32),
-        }
-        if self.mesh is not None:
-            batched = {
-                k_: (self._put_batched(v) if hasattr(v, "shape") else v)
-                for k_, v in batched.items()
-            }
-        return batched
 
     def _put_batched(self, tree):
         sh = NamedSharding(self.mesh, P(self.axis_name))
@@ -313,71 +103,6 @@ class BatchedPDHG:
         sopts = self.solver_opts
         tols = (sopts.tol_rel_primal, sopts.tol_rel_dual,
                 sopts.tol_abs_primal, sopts.tol_abs_dual)
-        if self.rof is not None:
-            r = self.rof
-            try:
-                return _batched_fused_rof_run(
-                    self.opts, r["nx"], r["ny"], r["dataterm"],
-                    r["n_bands"],
-                    self.mesh, self.axis_name, self.interpret,
-                    self.batched_problem, self.prox_g, self.prox_fstar,
-                    r["f"], r["w"], r["lmb"], r["radius"],
-                    state, jnp.asarray(until_iter, jnp.int32), tols,
-                )
-            except jax.errors.JaxRuntimeError:
-                # Mosaic capacity rejection of the whole-plane kernel:
-                # fall back to the generic vmapped path permanently
-                self.rof = None
-        if self.ml is not None:
-            m = self.ml
-            try:
-                return _batched_fused_ml_run(
-                    self.opts, m["nx"], m["ny"], m["L"],
-                    self.mesh, self.axis_name, self.interpret,
-                    self.batched_problem, self.prox_g, self.prox_fstar,
-                    m["f"], m["radius"], m["d_s"],
-                    state, jnp.asarray(until_iter, jnp.int32), tols,
-                )
-            except jax.errors.JaxRuntimeError:
-                self.ml = None
-        if self.deblur is not None:
-            d = self.deblur
-            try:
-                return _batched_fused_deblur_run(
-                    self.opts, d["nx"], d["ny"], d["nx2"], d["ny2"],
-                    d["taps"], d["sig_q"], d["tau_t"],
-                    self.mesh, self.axis_name, self.interpret,
-                    self.batched_problem, self.prox_g, self.prox_fstar,
-                    d["fb"], d["sv"], d["lmb"], d["radius"],
-                    state, jnp.asarray(until_iter, jnp.int32), tols,
-                )
-            except jax.errors.JaxRuntimeError:
-                self.deblur = None
-        if self.tight is not None:
-            t = self.tight
-            try:
-                return _batched_fused_tight_run(
-                    self.opts, t["nx"], t["ny"], t["L"], t["k"],
-                    (t["taps"], t["consts"]),
-                    self.mesh, self.axis_name, self.interpret,
-                    self.batched_problem, self.prox_g, self.prox_fstar,
-                    t["f"], t["radius"], t["d_s"],
-                    state, jnp.asarray(until_iter, jnp.int32), tols,
-                )
-            except jax.errors.JaxRuntimeError:
-                self.tight = None
-        if self.vol is not None:
-            v = self.vol
-            try:
-                return _batched_fused_vol_run(
-                    self.opts, v["L"], v["nx"], v["ny"], v["dataterm"],
-                    self.mesh, self.axis_name, self.interpret,
-                    self.batched_problem, self.prox_g, self.prox_fstar,
-                    v["f"], v["w"], v["lmb"], v["radius"],
-                    state, jnp.asarray(until_iter, jnp.int32), tols,
-                )
-            except jax.errors.JaxRuntimeError:
-                self.vol = None
         return _batched_pdhg_run(
             self.opts, self.batched_problem, self.prox_g, self.prox_fstar,
             state, jnp.asarray(until_iter, jnp.int32), tols,
@@ -412,582 +137,3 @@ def _batched_pdhg_run(opts, batched_problem, prox_g, prox_fstar, state,
         return jnp.any((s.iteration < until) & ~s.converged)
 
     return jax.lax.while_loop(cond, body, state)
-
-
-@partial(jax.jit, static_argnums=(0, 1, 2, 3, 4, 5, 6, 7),
-         donate_argnums=(15,))
-def _batched_fused_rof_run(opts, nx, ny, dataterm, n_bands, mesh, axis_name,
-                           interpret, batched_problem, prox_g, prox_fstar,
-                           f, w, lmb, radius, state, until, tols):
-    """Batched analog of fused_rof._fused_rof_run: the vmapped Pallas chunk
-    kernel runs every instance as one grid step (per-instance step sizes
-    travel in the per-grid-step SMEM scalar vector).  Converged instances
-    keep iterating until all converge, matching _batched_pdhg_run.
-    Instances above the whole-instance VMEM cap run the banded+batched
-    kernel (grid = (B, n_bands)) — the fused path has no size cliff.
-
-    On a multi-device mesh the kernel call runs under shard_map over the
-    batch axis: each device's kernel grid covers its local B/n_devices
-    instances, with ZERO collectives inside the chunk (instances are
-    independent; only the loop's convergence test all-reduces).  This is
-    BASELINE config 5's multi-host path at full fused single-chip speed.
-    """
-    import dataclasses
-
-    from jax.sharding import PartitionSpec as P
-
-    from ..backend.pdhg import residual_and_adapt
-    from ..ops.fused_rof import (rof_fused_chunk_banded_batched,
-                                 rof_fused_chunk_batched)
-
-    ri = max(int(opts.residual_iter), 1)
-
-    def raw_chunk(x, q, ff, ww, scal):
-        if n_bands > 1:
-            return rof_fused_chunk_banded_batched(
-                x, q, ff, ww, scal, ri, n_bands, dataterm=dataterm,
-                interpret=interpret)
-        return rof_fused_chunk_batched(x, q, ff, ww, scal, ri,
-                                       dataterm=dataterm,
-                                       interpret=interpret)
-
-    if mesh is not None and mesh.devices.size > 1:
-        bspec = P(axis_name)
-        sspec = P(None, axis_name)  # (5, B) / (4, B) instances-minor
-        chunk_call = jax.shard_map(
-            raw_chunk, mesh=mesh,
-            in_specs=(bspec, bspec, bspec, bspec, sspec),
-            out_specs=(bspec, bspec, bspec, bspec, sspec),
-            check_vma=False,
-        )
-    else:
-        chunk_call = raw_chunk
-
-    def step_one(problem, pg, pf, s):
-        return pdhg_step(problem, pg, pf, opts, tols, s)
-
-    vstep = jax.vmap(step_one, in_axes=(0, 0, 0, 0))
-
-    def generic(s):
-        return vstep(batched_problem, prox_g, prox_fstar, s)
-
-    def vadapt(problem, s, n0, n1, n2, n3, it):
-        return residual_and_adapt(problem, opts, tols, s, n0, n1, n2, n3, it)
-
-    vadapt = jax.vmap(vadapt, in_axes=(0, 0, 0, 0, 0, 0, 0))
-
-    def fused_chunk(s):
-        B = s.x.shape[0]
-        x = s.x.reshape(B, nx, ny)
-        q = s.y.reshape(B, 2, nx, ny)
-        scal = jnp.stack(
-            [s.tau, s.sigma, s.theta,
-             jnp.broadcast_to(lmb, (B,)), jnp.broadcast_to(radius, (B,))],
-            axis=0)
-        x2, q2, xp, qp, norms2 = chunk_call(x, q, f, w, scal)
-        norms = jnp.sqrt(norms2)
-        s = dataclasses.replace(
-            s,
-            x=x2.reshape(B, -1), y=q2.reshape(B, -1),
-            x_prev=xp.reshape(B, -1), y_prev=qp.reshape(B, -1),
-        )
-        s = vadapt(batched_problem, s, norms[0], norms[1],
-                   norms[2], norms[3], s.iteration + ri - 1)
-        return dataclasses.replace(s, iteration=s.iteration + ri)
-
-    align = 1 % ri
-
-    def cond_a(s):
-        return jnp.any(
-            (s.iteration % ri != align) & (s.iteration < until) & ~s.converged
-        )
-
-    state = lax.while_loop(cond_a, generic, state)
-
-    # canonicalize the dual warm start once per run (cf. fused_rof
-    # _fused_rof_run): gridded and banded+batched routes then agree
-    from ..ops.fused_rof import _project_dead_dual
-
-    def proj_y(yf):
-        B = yf.shape[0]
-        q = yf.reshape(B, 2, nx, ny)
-        qx, qy = jax.vmap(_project_dead_dual)(q[:, 0], q[:, 1])
-        return jnp.stack([qx, qy], axis=1).reshape(B, -1)
-
-    state = dataclasses.replace(
-        state, y=proj_y(state.y), y_prev=proj_y(state.y_prev))
-
-    def cond_b(s):
-        return jnp.any((s.iteration + ri <= until) & ~s.converged)
-
-    state = lax.while_loop(cond_b, fused_chunk, state)
-
-    # epilogue: refresh operator products (per instance)
-    vap = jax.vmap(lambda p, v: p.linop.apply(v))
-    vad = jax.vmap(lambda p, v: p.linop.apply_adjoint(v))
-    state = dataclasses.replace(
-        state,
-        kx=vap(batched_problem, state.x),
-        kty=vad(batched_problem, state.y),
-        kx_prev=vap(batched_problem, state.x_prev),
-        kty_prev=vad(batched_problem, state.y_prev),
-    )
-
-    def cond_c(s):
-        return jnp.any((s.iteration < until) & ~s.converged)
-
-    return lax.while_loop(cond_c, generic, state)
-
-
-@partial(jax.jit, static_argnums=(0, 1, 2, 3, 4, 5, 6),
-         donate_argnums=(13,))
-def _batched_fused_ml_run(opts, nx, ny, L, mesh, axis_name, interpret,
-                          batched_problem, prox_g, prox_fstar,
-                          f, radius, d_s, state, until, tols):
-    """Batched analog of fused_multilabel._fused_ml_run: the gridded
-    batch kernel (ml_fused_chunk_batched) advances every instance one
-    chunk per call; per-instance adaptive step sizes ride the (5, B)
-    SMEM scalar array.  Under a mesh the kernel runs under shard_map
-    over the batch axis with ZERO in-chunk collectives (cf.
-    _batched_fused_rof_run)."""
-    import dataclasses
-
-    from jax.sharding import PartitionSpec as P
-
-    from ..backend.pdhg import residual_and_adapt
-    from ..ops.fused_multilabel import ml_fused_chunk_batched
-
-    ri = max(int(opts.residual_iter), 1)
-    n = nx * ny
-    nL = n * L
-
-    def raw_chunk(u, q, sm, ff, scal):
-        return ml_fused_chunk_batched(u, q, sm, ff, scal, ri,
-                                      interpret=interpret)
-
-    if mesh is not None and mesh.devices.size > 1:
-        bspec = P(axis_name)
-        sspec = P(None, axis_name)  # (5, B) / (4, B) instances-minor
-        chunk_call = jax.shard_map(
-            raw_chunk, mesh=mesh,
-            in_specs=(bspec, bspec, bspec, bspec, sspec),
-            out_specs=(bspec, bspec, bspec, bspec, bspec, bspec, sspec),
-            check_vma=False,
-        )
-    else:
-        chunk_call = raw_chunk
-
-    def step_one(problem, pg, pf, s):
-        return pdhg_step(problem, pg, pf, opts, tols, s)
-
-    vstep = jax.vmap(step_one, in_axes=(0, 0, 0, 0))
-
-    def generic(s):
-        return vstep(batched_problem, prox_g, prox_fstar, s)
-
-    def vadapt(problem, s, n0, n1, n2, n3, it):
-        return residual_and_adapt(problem, opts, tols, s, n0, n1, n2, n3,
-                                  it)
-
-    vadapt = jax.vmap(vadapt, in_axes=(0, 0, 0, 0, 0, 0, 0))
-
-    def fused_chunk(s):
-        B = s.x.shape[0]
-        u = s.x.reshape(B, L, nx, ny)
-        q = s.y[:, :2 * nL].reshape(B, 2 * L, nx, ny)
-        sm = s.y[:, 2 * nL:].reshape(B, nx, ny)
-        scal = jnp.stack(
-            [s.tau, s.sigma, s.theta,
-             jnp.broadcast_to(radius, (B,)), jnp.broadcast_to(d_s, (B,))],
-            axis=0)
-        u2, q2, s2, up, qp, sp, norms2 = chunk_call(u, q, sm, f, scal)
-        norms = jnp.sqrt(norms2)
-
-        def unpack(ue, qe, se):
-            return (ue.reshape(B, -1),
-                    jnp.concatenate([qe.reshape(B, -1),
-                                     se.reshape(B, -1)], axis=1))
-
-        x_new, y_new = unpack(u2, q2, s2)
-        xp_new, yp_new = unpack(up, qp, sp)
-        s = dataclasses.replace(
-            s, x=x_new, y=y_new, x_prev=xp_new, y_prev=yp_new)
-        s = vadapt(batched_problem, s, norms[0], norms[1],
-                   norms[2], norms[3], s.iteration + ri - 1)
-        return dataclasses.replace(s, iteration=s.iteration + ri)
-
-    align = 1 % ri
-
-    def cond_a(s):
-        return jnp.any(
-            (s.iteration % ri != align) & (s.iteration < until) & ~s.converged
-        )
-
-    state = lax.while_loop(cond_a, generic, state)
-
-    def cond_b(s):
-        return jnp.any((s.iteration + ri <= until) & ~s.converged)
-
-    state = lax.while_loop(cond_b, fused_chunk, state)
-
-    # epilogue: refresh operator products (per instance)
-    vap = jax.vmap(lambda p, v: p.linop.apply(v))
-    vad = jax.vmap(lambda p, v: p.linop.apply_adjoint(v))
-    state = dataclasses.replace(
-        state,
-        kx=vap(batched_problem, state.x),
-        kty=vad(batched_problem, state.y),
-        kx_prev=vap(batched_problem, state.x_prev),
-        kty_prev=vad(batched_problem, state.y_prev),
-    )
-
-    def cond_c(s):
-        return jnp.any((s.iteration < until) & ~s.converged)
-
-    return lax.while_loop(cond_c, generic, state)
-
-
-@partial(jax.jit, static_argnums=(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10),
-         donate_argnums=(18,))
-def _batched_fused_deblur_run(opts, nx, ny, nx2, ny2, taps, sig_q, tau_t,
-                              mesh, axis_name, interpret,
-                              batched_problem, prox_g, prox_fstar,
-                              fb, sv, lmb, radius, state, until, tols):
-    """Batched analog of fused_deblur._fused_deblur_run: the gridded
-    batch kernel advances every instance one chunk per call on EMBEDDED
-    (nx2, ny2) planes carried across chunks (packed once per run)."""
-    import dataclasses
-
-    from jax.sharding import PartitionSpec as P
-
-    from ..backend.pdhg import residual_and_adapt
-    from ..ops.fused_deblur import _embed, deblur_fused_chunk_batched
-
-    ri = max(int(opts.residual_iter), 1)
-    n = nx * ny
-    m2 = nx2 * ny2
-
-    def raw_chunk(x, yv, q, ff, ss, scal):
-        return deblur_fused_chunk_batched(
-            x, yv, q, ff, ss, scal, ri, nx, ny, taps, sig_q, tau_t,
-            interpret=interpret)
-
-    if mesh is not None and mesh.devices.size > 1:
-        bspec = P(axis_name)
-        sspec = P(None, axis_name)
-        chunk_call = jax.shard_map(
-            raw_chunk, mesh=mesh,
-            in_specs=(bspec, bspec, bspec, bspec, bspec, sspec),
-            out_specs=(bspec, bspec, bspec, bspec, bspec, bspec, sspec),
-            check_vma=False,
-        )
-    else:
-        chunk_call = raw_chunk
-
-    def step_one(problem, pg, pf, s):
-        return pdhg_step(problem, pg, pf, opts, tols, s)
-
-    vstep = jax.vmap(step_one, in_axes=(0, 0, 0, 0))
-
-    def generic(s):
-        return vstep(batched_problem, prox_g, prox_fstar, s)
-
-    def vadapt(problem, s, n0, n1, n2, n3, it):
-        return residual_and_adapt(problem, opts, tols, s, n0, n1, n2, n3,
-                                  it)
-
-    vadapt = jax.vmap(vadapt, in_axes=(0, 0, 0, 0, 0, 0, 0))
-    vembed = jax.vmap(partial(_embed, nx2=nx2, ny2=ny2))
-
-    def pack(xf, yf):
-        B = xf.shape[0]
-        return (vembed(xf.reshape(B, nx, ny)),
-                yf[:, :m2].reshape(B, nx2, ny2),
-                vembed(yf[:, m2:].reshape(B, 2, nx, ny)))
-
-    def fused_chunk(carry):
-        s, (x, yv, q, _xp, _yvp, _qp) = carry
-        B = x.shape[0]
-        scal = jnp.stack(
-            [s.tau, s.sigma, s.theta,
-             jnp.broadcast_to(lmb, (B,)), jnp.broadcast_to(radius, (B,))],
-            axis=0)
-        x2, yv2, q2, xp, yvp, qp, norms2 = chunk_call(x, yv, q, fb, sv,
-                                                      scal)
-        norms = jnp.sqrt(norms2)
-        s = vadapt(batched_problem, s, norms[0], norms[1],
-                   norms[2], norms[3], s.iteration + ri - 1)
-        s = dataclasses.replace(s, iteration=s.iteration + ri)
-        return (s, (x2, yv2, q2, xp, yvp, qp))
-
-    align = 1 % ri
-
-    def cond_a(s):
-        return jnp.any(
-            (s.iteration % ri != align) & (s.iteration < until) & ~s.converged
-        )
-
-    state = lax.while_loop(cond_a, generic, state)
-
-    def cond_b(carry):
-        s = carry[0]
-        return jnp.any((s.iteration + ri <= until) & ~s.converged)
-
-    state, planes = lax.while_loop(
-        cond_b, fused_chunk,
-        (state, pack(state.x, state.y) + pack(state.x_prev, state.y_prev)))
-
-    def unpack(xe, yve, qe):
-        B = xe.shape[0]
-        return (
-            xe[:, :nx, :ny].reshape(B, -1),
-            jnp.concatenate([yve.reshape(B, -1),
-                             qe[:, :, :nx, :ny].reshape(B, -1)], axis=1),
-        )
-
-    x_new, y_new = unpack(*planes[:3])
-    xp_new, yp_new = unpack(*planes[3:])
-    state = dataclasses.replace(
-        state, x=x_new, y=y_new, x_prev=xp_new, y_prev=yp_new)
-
-    vap = jax.vmap(lambda p, v: p.linop.apply(v))
-    vad = jax.vmap(lambda p, v: p.linop.apply_adjoint(v))
-    state = dataclasses.replace(
-        state,
-        kx=vap(batched_problem, state.x),
-        kty=vad(batched_problem, state.y),
-        kx_prev=vap(batched_problem, state.x_prev),
-        kty_prev=vad(batched_problem, state.y_prev),
-    )
-
-    def cond_c(s):
-        return jnp.any((s.iteration < until) & ~s.converged)
-
-    return lax.while_loop(cond_c, generic, state)
-
-
-@partial(jax.jit, static_argnums=(0, 1, 2, 3, 4, 5, 6, 7, 8),
-         donate_argnums=(15,))
-def _batched_fused_tight_run(opts, nx, ny, L, k, taps_consts, mesh,
-                             axis_name, interpret, batched_problem,
-                             prox_g, prox_fstar, f, radius, d_s,
-                             state, until, tols):
-    """Batched analog of fused_tight._fused_tight_run: the gridded batch
-    kernel (tight_fused_chunk_batched) advances every instance one chunk
-    per call; per-instance adaptive step sizes ride the (5, B) SMEM
-    scalar array.  Under a mesh the kernel runs under shard_map over the
-    batch axis with ZERO in-chunk collectives (cf.
-    _batched_fused_rof_run)."""
-    import dataclasses
-
-    from jax.sharding import PartitionSpec as P
-
-    from ..backend.pdhg import residual_and_adapt
-    from ..ops.fused_tight import tight_fused_chunk_batched
-
-    taps, consts = taps_consts
-    ri = max(int(opts.residual_iter), 1)
-    n = nx * ny
-    nL = n * L
-    nk2 = 2 * n * k
-
-    def raw_chunk(u, v, q, p, sm, ff, scal):
-        return tight_fused_chunk_batched(u, v, q, p, sm, ff, scal, ri,
-                                         taps, consts,
-                                         interpret=interpret)
-
-    if mesh is not None and mesh.devices.size > 1:
-        bspec = P(axis_name)
-        sspec = P(None, axis_name)  # (5, B) / (4, B) instances-minor
-        chunk_call = jax.shard_map(
-            raw_chunk, mesh=mesh,
-            in_specs=(bspec,) * 6 + (sspec,),
-            out_specs=((bspec,) * 5, (bspec,) * 5, sspec),
-            check_vma=False,
-        )
-    else:
-        chunk_call = raw_chunk
-
-    def step_one(problem, pg, pf, s):
-        return pdhg_step(problem, pg, pf, opts, tols, s)
-
-    vstep = jax.vmap(step_one, in_axes=(0, 0, 0, 0))
-
-    def generic(s):
-        return vstep(batched_problem, prox_g, prox_fstar, s)
-
-    def vadapt(problem, s, n0, n1, n2, n3, it):
-        return residual_and_adapt(problem, opts, tols, s, n0, n1, n2, n3,
-                                  it)
-
-    vadapt = jax.vmap(vadapt, in_axes=(0, 0, 0, 0, 0, 0, 0))
-
-    def pack(xf, yf):
-        B = xf.shape[0]
-        return (xf[:, :nL].reshape(B, L, nx, ny),
-                xf[:, nL:].reshape(B, 2 * k, nx, ny),
-                yf[:, : 2 * nL].reshape(B, 2 * L, nx, ny),
-                yf[:, 2 * nL: 2 * nL + nk2].reshape(B, 2 * k, nx, ny),
-                yf[:, 2 * nL + nk2:].reshape(B, nx, ny))
-
-    def fused_chunk(carry):
-        s, cur, _prev = carry
-        B = cur[0].shape[0]
-        scal = jnp.stack(
-            [s.tau, s.sigma, s.theta,
-             jnp.broadcast_to(radius, (B,)),
-             jnp.broadcast_to(d_s, (B,))], axis=0)
-        new, prev, norms2 = chunk_call(*cur, f, scal)
-        norms = jnp.sqrt(norms2)
-        s = vadapt(batched_problem, s, norms[0], norms[1],
-                   norms[2], norms[3], s.iteration + ri - 1)
-        s = dataclasses.replace(s, iteration=s.iteration + ri)
-        return (s, tuple(new), tuple(prev))
-
-    align = 1 % ri
-
-    def cond_a(s):
-        return jnp.any(
-            (s.iteration % ri != align) & (s.iteration < until) & ~s.converged
-        )
-
-    state = lax.while_loop(cond_a, generic, state)
-
-    def cond_b(carry):
-        s = carry[0]
-        return jnp.any((s.iteration + ri <= until) & ~s.converged)
-
-    state, cur, prev = lax.while_loop(
-        cond_b, fused_chunk,
-        (state, pack(state.x, state.y),
-         pack(state.x_prev, state.y_prev)))
-
-    def unpack(t):
-        uu, vv, qq, pp, ss = t
-        B = uu.shape[0]
-        return (
-            jnp.concatenate([uu.reshape(B, -1), vv.reshape(B, -1)],
-                            axis=1),
-            jnp.concatenate([qq.reshape(B, -1), pp.reshape(B, -1),
-                             ss.reshape(B, -1)], axis=1),
-        )
-
-    x_new, y_new = unpack(cur)
-    xp_new, yp_new = unpack(prev)
-    state = dataclasses.replace(
-        state, x=x_new, y=y_new, x_prev=xp_new, y_prev=yp_new)
-
-    vap = jax.vmap(lambda p, v: p.linop.apply(v))
-    vad = jax.vmap(lambda p, v: p.linop.apply_adjoint(v))
-    state = dataclasses.replace(
-        state,
-        kx=vap(batched_problem, state.x),
-        kty=vad(batched_problem, state.y),
-        kx_prev=vap(batched_problem, state.x_prev),
-        kty_prev=vad(batched_problem, state.y_prev),
-    )
-
-    def cond_c(s):
-        return jnp.any((s.iteration < until) & ~s.converged)
-
-    return lax.while_loop(cond_c, generic, state)
-
-
-@partial(jax.jit, static_argnums=(0, 1, 2, 3, 4, 5, 6, 7),
-         donate_argnums=(14,))
-def _batched_fused_vol_run(opts, L, nx, ny, dataterm, mesh, axis_name,
-                           interpret, batched_problem, prox_g, prox_fstar,
-                           f, w, lmb, radius, state, until, tols):
-    """Batched analog of fused_vol._fused_vol_run: the gridded batch
-    kernel (vol_fused_chunk_batched) advances every instance one chunk
-    per call; per-instance adaptive step sizes (and lmb/radius) ride the
-    (5, B) SMEM scalar array.  Under a mesh the kernel runs under
-    shard_map over the batch axis with ZERO in-chunk collectives."""
-    import dataclasses
-
-    from jax.sharding import PartitionSpec as P
-
-    from ..backend.pdhg import residual_and_adapt
-    from ..ops.fused_vol import vol_fused_chunk_batched
-
-    ri = max(int(opts.residual_iter), 1)
-    nvox = L * nx * ny
-
-    def raw_chunk(u, q, ff, ww, scal):
-        return vol_fused_chunk_batched(u, q, ff, ww, scal, ri,
-                                       dataterm=dataterm,
-                                       interpret=interpret)
-
-    if mesh is not None and mesh.devices.size > 1:
-        bspec = P(axis_name)
-        sspec = P(None, axis_name)  # (5, B) / (4, B) instances-minor
-        chunk_call = jax.shard_map(
-            raw_chunk, mesh=mesh,
-            in_specs=(bspec, bspec, bspec, bspec, sspec),
-            out_specs=(bspec, bspec, bspec, bspec, sspec),
-            check_vma=False,
-        )
-    else:
-        chunk_call = raw_chunk
-
-    def step_one(problem, pg, pf, s):
-        return pdhg_step(problem, pg, pf, opts, tols, s)
-
-    vstep = jax.vmap(step_one, in_axes=(0, 0, 0, 0))
-
-    def generic(s):
-        return vstep(batched_problem, prox_g, prox_fstar, s)
-
-    def vadapt(problem, s, n0, n1, n2, n3, it):
-        return residual_and_adapt(problem, opts, tols, s, n0, n1, n2, n3,
-                                  it)
-
-    vadapt = jax.vmap(vadapt, in_axes=(0, 0, 0, 0, 0, 0, 0))
-
-    def fused_chunk(s):
-        B = s.x.shape[0]
-        u = s.x.reshape(B, L, nx, ny)
-        q = s.y.reshape(B, 3, L, nx, ny)
-        scal = jnp.stack(
-            [s.tau, s.sigma, s.theta,
-             jnp.broadcast_to(lmb, (B,)),
-             jnp.broadcast_to(radius, (B,))], axis=0)
-        u2, q2, up, qp, norms2 = chunk_call(u, q, f, w, scal)
-        norms = jnp.sqrt(norms2)
-        s = dataclasses.replace(
-            s,
-            x=u2.reshape(B, -1), y=q2.reshape(B, -1),
-            x_prev=up.reshape(B, -1), y_prev=qp.reshape(B, -1),
-        )
-        s = vadapt(batched_problem, s, norms[0], norms[1],
-                   norms[2], norms[3], s.iteration + ri - 1)
-        return dataclasses.replace(s, iteration=s.iteration + ri)
-
-    align = 1 % ri
-
-    def cond_a(s):
-        return jnp.any(
-            (s.iteration % ri != align) & (s.iteration < until) & ~s.converged
-        )
-
-    state = lax.while_loop(cond_a, generic, state)
-
-    def cond_b(s):
-        return jnp.any((s.iteration + ri <= until) & ~s.converged)
-
-    state = lax.while_loop(cond_b, fused_chunk, state)
-
-    vap = jax.vmap(lambda p, v: p.linop.apply(v))
-    vad = jax.vmap(lambda p, v: p.linop.apply_adjoint(v))
-    state = dataclasses.replace(
-        state,
-        kx=vap(batched_problem, state.x),
-        kty=vad(batched_problem, state.y),
-        kx_prev=vap(batched_problem, state.x_prev),
-        kty_prev=vad(batched_problem, state.y_prev),
-    )
-
-    def cond_c(s):
-        return jnp.any((s.iteration < until) & ~s.converged)
-
-    return lax.while_loop(cond_c, generic, state)

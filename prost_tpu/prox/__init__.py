@@ -1,4 +1,4 @@
-"""Proximal-operator layer (TPU-native counterpart of
+"""Proximal-operator layer (counterpart of
 /root/reference/src/prox and include/prost/prox)."""
 
 from .base import Prox, ProxSeparableSum, apply_proxs, check_domain

@@ -1,6 +1,6 @@
 """Prox operator base machinery.
 
-Design (TPU-native re-think of /root/reference/include/prost/prox/prox.hpp):
+Design (re-think of /root/reference/include/prost/prox/prox.hpp):
 
 A prox operator owns the contiguous range ``[index, index+size)`` of a flat
 variable vector and is a *pure function*
@@ -17,9 +17,9 @@ prox_separable_sum.hpp:36-44: ``size = count * dim`` vectors laid out either
 interleaved (x1 y1 x2 y2 ...) or planar (x1 x2 ... y1 y2 ...).  Instead of
 the reference's strided Vector<T> view (vector.hpp:42-48), each elem-op
 receives the segment reshaped to ``(dim, count)``: component i of all
-vectors is row i.  This puts the large ``count`` axis in the TPU lane
-(minor) dimension so the VPU runs at full width; ``dim`` is typically tiny
-(2..32) and would waste 126/128 lanes as the minor axis.  For planar data
+vectors is row i.  This puts the large ``count`` axis in the minor
+(contiguous) dimension, so elementwise work over it is unit-stride; ``dim``
+is typically tiny (2..32).  For planar data
 the reshape is free; for interleaved data it is a transpose that XLA fuses
 into the adjacent elementwise ops.
 

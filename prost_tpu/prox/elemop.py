@@ -1,6 +1,6 @@
 """Element-wise prox operations: 1d, norm2, ind_simplex, ind_sum.
 
-TPU-native counterparts of ProxElemOperation<T, ELEM_OP>
+Counterparts of ProxElemOperation<T, ELEM_OP>
 (/root/reference/include/prost/prox/prox_elem_operation.{hpp,inl}): the
 one-CUDA-thread-per-vector kernel becomes a single vectorized jnp expression
 over a (dim, count) view of the segment; XLA fuses it with the surrounding

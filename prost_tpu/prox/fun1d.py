@@ -4,7 +4,7 @@ Each function computes ``prox_{tau f}(x0) = argmin_x f(x) + (1/(2 tau))(x-x0)^2`
 for a family of scalar functions f parametrized by (alpha, beta).  All are
 written as vectorized jnp expressions: arguments may be arrays of any shape
 (broadcast against each other), which replaces the reference's
-one-CUDA-thread-per-scalar model with VPU-vectorized element-wise code.
+one-CUDA-thread-per-scalar model with vectorized element-wise code.
 
 Behavioral parity with /root/reference/include/prost/prox/elemop/function_1d.hpp
 (semantics re-derived, not transcribed):
@@ -85,7 +85,7 @@ def _lq_newton(t0, factor, q, num_iters: int = 30):
     """Newton iterations for min_t 0.5 (t-1)^2 + factor * t^q, t in (0, 1].
 
     The reference iterates until |delta| < eps (function_1d.hpp:172-191);
-    on TPU a fixed iteration count keeps the loop compile-friendly and
+    here a fixed iteration count keeps the loop compile-friendly and
     fully vectorized.  30 iterations of Newton from t=1 is far past
     float64 convergence for the relevant parameter range.
     """

@@ -1,7 +1,7 @@
 """2D prox functions operating on pairs (e.g. the two singular values of an
 N x 2 matrix).
 
-TPU-native counterpart of
+Counterpart of
 /root/reference/include/prost/prox/elemop/function_2d.hpp: each is a pure
 vectorized function (y1, y2, tau, alpha, beta) -> (x1, x2).
 """

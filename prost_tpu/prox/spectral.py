@@ -1,12 +1,12 @@
 """Spectral prox operators: functions of eigenvalues / singular values of
 small matrices stored per-vector in the flat variable.
 
-TPU-native counterparts of the reference's elem_operation_eigen_{2x2,3x3,
+Counterparts of the reference's elem_operation_eigen_{2x2,3x3,
 nxn}.hpp, elem_operation_singular_nx2.hpp and elem_operation_mass_norm.hpp.
 The reference decomposes each tiny matrix inside one CUDA thread with
 hand-written Householder/QL/Cardano routines; here every decomposition is a
 *batched* closed form (2x2) or a batched ``jnp.linalg.eigh`` over the
-(count, n, n) stack, which XLA vectorizes/tiles for the TPU.
+(count, n, n) stack, which XLA vectorizes.
 
 The skew-symmetric (mass-norm) decomposition is re-derived rather than
 translated: for skew M, M Mᵀ = -M² is symmetric PSD with doubly-degenerate
@@ -21,7 +21,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..common import pytree_dataclass, static_field
+from ..common import einsum, pytree_dataclass, static_field
 from .base import ProxSeparableSum, effective_tau
 from .elemop import scaled_fun_1d
 from .fun1d import FUN_1D
@@ -115,7 +115,7 @@ def _spectral_prox_nxn(mats, taus, fun, coeffs):
     sym = (mats + jnp.swapaxes(mats, -1, -2)) / 2.0
     evals, evecs = jnp.linalg.eigh(sym)  # (count, n), (count, n, n)
     s = scaled_fun_1d(fun, evals, taus[:, None], coeffs)
-    return jnp.einsum("cij,cj,ckj->cik", evecs, s, evecs)
+    return einsum("cij,cj,ckj->cik", evecs, s, evecs)
 
 
 @pytree_dataclass
@@ -254,19 +254,19 @@ def _mass_decompose_apply(M, n, transform):
     component orthogonal to span(u1, v1) (selected robustly among the
     next eigenvectors to survive σ1 == σ2 degeneracy), v2 = M u2/σ2.
     """
-    S = jnp.einsum("cij,ckj->cik", M, M)  # M M^T
+    S = einsum("cij,ckj->cik", M, M)  # M M^T
     _, W = jnp.linalg.eigh(S)  # ascending; take the last columns
     u1 = W[:, :, -1]  # (count, n) top eigenvector
 
-    Mu1 = jnp.einsum("cij,cj->ci", M, u1)
+    Mu1 = einsum("cij,cj->ci", M, u1)
     sig1 = jnp.linalg.norm(Mu1, axis=1)
     v1 = Mu1 / jnp.where(sig1 > 0, sig1, 1.0)[:, None]
 
     # candidates for u2: next three eigenvectors; pick the one with the
     # largest residual after projecting out u1 and v1
     cands = W[:, :, -2:-5:-1]  # (count, n, 3)
-    proj_u = jnp.einsum("cnk,cn->ck", cands, u1)
-    proj_v = jnp.einsum("cnk,cn->ck", cands, v1)
+    proj_u = einsum("cnk,cn->ck", cands, u1)
+    proj_v = einsum("cnk,cn->ck", cands, v1)
     resid = cands - u1[:, :, None] * proj_u[:, None, :] - v1[:, :, None] * proj_v[:, None, :]
     norms = jnp.linalg.norm(resid, axis=1)  # (count, 3)
     best = jnp.argmax(norms, axis=1)
@@ -274,14 +274,14 @@ def _mass_decompose_apply(M, n, transform):
     nu2 = jnp.linalg.norm(u2, axis=1)
     u2 = u2 / jnp.where(nu2 > 0, nu2, 1.0)[:, None]
 
-    Mu2 = jnp.einsum("cij,cj->ci", M, u2)
+    Mu2 = einsum("cij,cj->ci", M, u2)
     sig2 = jnp.linalg.norm(Mu2, axis=1)
     v2 = Mu2 / jnp.where(sig2 > 0, sig2, 1.0)[:, None]
 
     s1, s2 = transform(sig1), transform(sig2)
 
     def plane(u, v):
-        return jnp.einsum("ci,cj->cij", v, u) - jnp.einsum("ci,cj->cij", u, v)
+        return einsum("ci,cj->cij", v, u) - einsum("ci,cj->cij", u, v)
 
     return s1[:, None, None] * plane(u1, v1) + s2[:, None, None] * plane(u2, v2)
 

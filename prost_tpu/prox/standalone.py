@@ -1,7 +1,7 @@
 """Standalone prox operators: zero, SOC, halfspace, quadratic epigraph,
 index-set sum constraints, range projection.
 
-TPU-native counterparts of /root/reference/src/prox/prox_{zero, ind_soc,
+Counterparts of /root/reference/src/prox/prox_{zero, ind_soc,
 ind_halfspace, ind_epi_quad, ind_sum, ind_range}.cu — each CUDA kernel
 becomes a vectorized jnp expression over a (dim, count) view.
 """
@@ -11,7 +11,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 
-from ..common import pytree_dataclass, static_field
+from ..common import einsum, matmul, pytree_dataclass, static_field
 from ..config import ProstError
 from .base import Prox, ProxSeparableSum
 
@@ -195,7 +195,7 @@ class ProxIndEpiPolyhedral(ProxSeparableSum):
     quadprog oracle with A = [coeff_a, -1], b = coeff_b) but never ships a
     kernel for (no factory.cpp registry entry).
 
-    TPU-native solve: the dual of the projection QP is the non-negative QP
+    Solve: the dual of the projection QP is the non-negative QP
 
         min_{lam >= 0}  1/2 lam^T M lam - lam^T q,
         M = Atil Atil^T,  q = Atil z0 - b,  Atil = [A, -1],  z0 = (x0, y0),
@@ -203,7 +203,7 @@ class ProxIndEpiPolyhedral(ProxSeparableSum):
     recovered by z = z0 - Atil^T lam.  Solved by batched projected SOR
     (over-relaxed Gauss-Seidel coordinate descent, exact per-coordinate
     minimization at ``omega`` = 1), all `count` problems advancing in
-    lockstep on the VPU lane axis; the per-point constraint counts may be
+    lockstep along the count axis; the per-point constraint counts may be
     ragged — padded rows carry mask 0 and never activate.  A feasible
     point (all q <= 0) keeps lam = 0, so the projection is the identity
     there with no special-casing.
@@ -262,10 +262,10 @@ class ProxIndEpiPolyhedral(ProxSeparableSum):
             mask = jnp.asarray(mask, a.dtype)
         # Gram of the augmented rows (a_i, -1): M_ij = <a_i, a_j> + 1,
         # zeroed outside the active block so padded lambdas stay inert.
-        M = jnp.einsum("idc,jdc->ijc", a, a) + 1.0
+        M = einsum("idc,jdc->ijc", a, a) + 1.0
         M = M * mask[:, None, :] * mask[None, :, :]
         eye = jnp.eye(m, dtype=a.dtype)[:, :, None]
-        Mii = jnp.einsum("iic->ic", M)
+        Mii = einsum("iic->ic", M)
         Mii_safe = jnp.where(mask > 0, Mii, 1.0)
         M = jnp.where((mask[:, None, :] * mask[None, :, :]) > 0, M, eye)
         return ProxIndEpiPolyhedral(
@@ -290,7 +290,7 @@ class ProxIndEpiPolyhedral(ProxSeparableSum):
         x0, y0 = vecs[:d], vecs[d]  # (d, count), (count,)
 
         # q_i = <a_i, x0> - y0 - b_i, masked so padded rows never activate
-        q = (jnp.einsum("idc,dc->ic", self.a, x0) - y0[None, :] - self.b)
+        q = (einsum("idc,dc->ic", self.a, x0) - y0[None, :] - self.b)
         q = q * self.mask
 
         def coord(i, carry):
@@ -315,7 +315,7 @@ class ProxIndEpiPolyhedral(ProxSeparableSum):
             # refresh w = M lam from scratch each sweep: the incremental
             # updates inside `coord` accumulate rounding drift that would
             # otherwise grow without bound with the sweep count
-            w = jnp.einsum("ijc,jc->ic", self.M, lam)
+            w = einsum("ijc,jc->ic", self.M, lam)
             lam, w, dmax = lax.fori_loop(
                 0, m, coord, (lam, w, jnp.zeros((), lam.dtype)))
             return lam, w, k + 1, dmax
@@ -329,7 +329,7 @@ class ProxIndEpiPolyhedral(ProxSeparableSum):
             (lam0, lam0, jnp.asarray(0, jnp.int32),
              jnp.asarray(jnp.inf, lam0.dtype)))
 
-        x = x0 - jnp.einsum("ic,idc->dc", lam, self.a)
+        x = x0 - einsum("ic,idc->dc", lam, self.a)
         y = y0 + jnp.sum(lam, axis=0)
         return jnp.concatenate([x, y[None, :]]).reshape(self.size)
 
@@ -395,9 +395,9 @@ class ProxIndRange(Prox):
     195-305) and an optional precomputed AA = A^T A which it Cholesky-
     factorizes with cuSOLVER; here both contracts are kept: pass a
     scipy.sparse matrix (or a jax BCOO) and the matvecs run as BCOO
-    dot-generals (gather/segment-sum on TPU) with O(nnz + k^2) memory
+    dot-generals (gather/segment-sum) with O(nnz + k^2) memory
     instead of densifying the (size, k) matrix; pass a dense array and
-    the matvecs map onto the MXU (the right call for DCT-like bases with
+    the matvecs are dense matrix products (the right call for DCT-like bases with
     ncols << nrows).  The (k, k) Cholesky factor is computed once at
     initialization and rides the pytree.
     """
@@ -430,7 +430,7 @@ class ProxIndRange(Prox):
         else:
             A = jnp.asarray(A, dt)
             if AA is None:
-                AA = A.T @ A
+                AA = matmul(A.T, A)
         chol = jnp.linalg.cholesky(jnp.asarray(AA, dt))
         return ProxIndRange(index=index, size=size, A=A, chol=chol)
 
@@ -441,6 +441,17 @@ class ProxIndRange(Prox):
     def eval_local(self, arg, tau_diag, tau_scal, invert_tau):
         from jax.scipy.linalg import cho_solve
 
-        atb = self.A.T @ arg
+        atb = _range_matvec(self.A.T, arg)
         coef = cho_solve((self.chol, True), atb)
-        return self.A @ coef
+        return _range_matvec(self.A, coef)
+
+
+def _range_matvec(A, v):
+    """A @ v for ProxIndRange's dense or BCOO A.  The sparse product is a
+    gather and segment sum, exact in the working dtype; the dense one is a
+    matrix product and asks for full precision."""
+    from jax.experimental import sparse as jsparse
+
+    if isinstance(A, jsparse.BCOO):
+        return A @ v
+    return matmul(A, v)

@@ -1,6 +1,6 @@
 """Solver driver: outer loop, convergence test, callbacks.
 
-TPU-native counterpart of /root/reference/src/solver.cu.  The iteration loop
+Counterpart of /root/reference/src/solver.cu.  The iteration loop
 itself lives inside the backend's jitted ``lax.while_loop``; the driver runs
 it in chunks between callback epochs (linspace schedule, solver.cu:130-135)
 so user callbacks observe (iter, x, y) on the host exactly like the

@@ -4,7 +4,7 @@ The reference has no disk checkpointing; resume means re-solving with
 Options.x0/y0 (solver.hpp:62-66).  Here the full solver state is a small
 pytree, so checkpoint/resume is exact: every loop-carried quantity
 (iterates, step sizes, adaptive-scheme state, iteration counter) survives
-— needed for preemptible TPU pools.
+— a preempted run resumes where it stopped.
 """
 
 from __future__ import annotations

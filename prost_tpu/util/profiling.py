@@ -3,7 +3,7 @@
 The reference's observability surface is: per-call kernel timing hooks
 (prox.cu:59-70, linearoperator.cu:177-194), verbose residual printing
 (solver.cu:162-168), and a predicted GPU-memory report (gpu_mem_amount,
-backend_pdhg.cu:503-511).  TPU-native equivalents:
+backend_pdhg.cu:503-511).  Equivalents here:
 
 * ``trace(dir)``     — jax.profiler trace context; view in TensorBoard/xprof.
 * ``timed(fn, ...)`` — compile-then-time a jitted callable, returns

@@ -6,7 +6,7 @@ instances: graph-form ADMM (Parikh & Boyd, "Proximal Algorithms" §4.4 /
 POGS splitting) in float64 numpy/scipy with an EXACT factorized graph
 projection (scipy splu) — a different algorithm family (operator
 splitting with direct solves), a different implementation, and a
-different precision than the f32 PDHG/Pallas paths under test.
+different precision than the f32 PDHG paths under test.
 
 Oracle self-validation: ``graph_admm`` is run at two different rho values
 and the energies must agree (see tests), and for ROF a primal-dual gap

@@ -15,7 +15,7 @@ from prost_tpu.backend import BackendADMM, ADMMOptions
 from prost_tpu.backend.admm import _dct_project, dct_projection_plan
 from prost_tpu.backend.cgls import cgls_solve
 from prost_tpu.config import ProstError
-from test_fused_rof import rof_problem, _opts
+from problems import rof_problem, zero_tol_opts
 
 
 def test_dct_projection_matches_converged_cgls():
@@ -97,4 +97,23 @@ def test_dct_rejected_for_unsupported_structure():
     core = prob.finalize()
     assert dct_projection_plan(core) is None
     with pytest.raises(ProstError):
-        BackendADMM(core, ADMMOptions(projection="dct"), _opts())
+        BackendADMM(core, ADMMOptions(projection="dct"), zero_tol_opts())
+
+
+def test_generic_cheby_matches_cgls_solution():
+    """projection='cheby' (fixed-coefficient, dot-product-free) and the
+    reference CGLS are different inexact solvers of the SAME kappa<=2 SPD
+    system; at degree 10 both sit at the f32 floor, so the ADMM
+    trajectories agree to f32 arithmetic."""
+    nx, ny = 32, 24
+    rng = np.random.RandomState(11)
+    f = rng.rand(nx * ny).astype(np.float32)
+    prob = rof_problem(nx, ny, f, 8.0)
+    g1 = BackendADMM(prob, ADMMOptions(residual_iter=10), zero_tol_opts())
+    s1 = g1.run(g1.initial_state(), 60)
+    g2 = BackendADMM(prob, ADMMOptions(residual_iter=10,
+                                       projection="cheby"), zero_tol_opts())
+    s2 = g2.run(g2.initial_state(), 60)
+    np.testing.assert_allclose(np.asarray(s1.x_half), np.asarray(s2.x_half),
+                               atol=2e-5)
+    np.testing.assert_allclose(float(s1.rho), float(s2.rho), rtol=1e-6)

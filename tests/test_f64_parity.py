@@ -1,13 +1,12 @@
-"""f64 end-to-end parity suite (round-4 verdict, weak #7 / task 6).
+"""f64 end-to-end parity suite.
 
 The reference MEX layer builds with real = double
 (matlab/+prost/private/config.hpp:6-7) and its examples stop at
 1e-6..1e-7 tolerances in that mode.  This suite pins one x64 end-to-end
-solve per family to the reference's TIGHTEST stopping rules through the
-generic path, and bounds the f32 fused kernels' drift against the x64
-generic trajectory for every fused family (the fused kernels are
-consistent-mode f32; their drift vs a double-precision run is the honest
-accuracy statement)."""
+solve per family to the reference's TIGHTEST stopping rules, and bounds
+the float32 path's drift against the x64 trajectory for every structure
+(the drift vs a double-precision run is the honest accuracy statement
+for float32)."""
 
 import numpy as np
 import jax
@@ -17,6 +16,8 @@ import pytest
 import prost_tpu as pt
 from prost_tpu import block, function
 from prost_tpu.backend.pdhg import BackendPDHG, PDHGOptions
+
+from problems import deblur_problem, ml_problem, tight_problem, vol_problem
 
 
 class _x64:
@@ -69,10 +70,6 @@ def test_f64_tvl1_to_tol_1e7():
 def test_f64_tight_multilabel_to_tol_2e6():
     """Tight multilabel relaxation in x64 at the reference's tol 2e-6
     (example_multilabel_tight.m:97-102), generic path."""
-    import sys, os
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_fused_tight import tight_problem
-
     with _x64():
         core = tight_problem(10, 10, L=3, lmb=1.0, seed=1)
         opts = PDHGOptions(stepsize="boyd", residual_iter=10)
@@ -102,16 +99,12 @@ def test_f64_admm_rof_to_tol_1e6():
 def test_f64_multilabel_fast_to_tol_1e5():
     """Fast multilabel relaxation in x64 at the reference's tol 1e-5
     (example_multilabel_fast.m:55-60), generic path."""
-    import sys, os
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_parallel import _ml_problem
-
     with _x64():
         nx = ny = 12
         L = 3
         n = nx * ny
         rng = np.random.RandomState(5)
-        core = _ml_problem(nx, ny, L, rng.rand(n * L), 0.7)
+        core = ml_problem(nx, ny, L, rng.rand(n * L), 0.7)
         backend = BackendPDHG(
             core, PDHGOptions(stepsize="boyd", residual_iter=10),
             _tols(1e-5))
@@ -121,157 +114,52 @@ def test_f64_multilabel_fast_to_tol_1e5():
 
 
 # ---------------------------------------------------------------------------
-# f32-fused vs f64-generic drift bounds, one per fused family
+# float32 vs float64 drift bounds, one per structure
 # ---------------------------------------------------------------------------
 
 _N_IT = 51  # aligned for residual_iter=5 runs (51 % 5 == 1)
 
 
-def _drift(fused_x, gen_x):
-    return float(np.max(np.abs(np.asarray(fused_x, np.float64)
-                               - np.asarray(gen_x, np.float64))))
+def _drift_problem(structure):
+    """A builder for the structure's small test instance; called once in
+    float32 and once under x64, it builds the same problem data."""
+    if structure in ("rof", "tvl1", "admm"):
+        lmb = 1.2 if structure == "tvl1" else (16.0 if structure == "admm"
+                                                else 8.0)
+        dataterm = "abs" if structure == "tvl1" else "square"
+        return lambda: _rof_problem(16, 16, lmb, dataterm,
+                                    seed=3)[0].finalize()
+    if structure == "multilabel":
+        f = np.random.RandomState(7).rand(12 * 12 * 3).astype(np.float32)
+        return lambda: ml_problem(12, 12, 3, np.asarray(f, np.float64), 0.7)
+    if structure == "tight":
+        return lambda: tight_problem(10, 10, L=3, lmb=1.0, seed=2)
+    if structure == "deblur":
+        return lambda: deblur_problem(12, 12, lmb=30.0, seed=4)[0]
+    f = np.random.RandomState(9).rand(3 * 12 * 12).astype(np.float32)
+    return lambda: vol_problem(3, 12, 12, np.asarray(f, np.float64), 6.0)
 
 
-def _generic_x64_rof(nx, ny, lmb, dataterm, seed, iters, opts):
-    with _x64():
-        prob, _ = _rof_problem(nx, ny, lmb, dataterm, seed)
-        core = prob.finalize()
-        backend = BackendPDHG(core, opts, _tols(0))
-        state = backend.run(backend.initial_state(), iters)
-        return np.asarray(state.x, np.float64)
-
-
-@pytest.mark.parametrize("dataterm", ["square", "abs"])
-def test_fused_rof_drift_vs_f64(dataterm):
-    """The f32 fused ROF/TV-L1 kernel's iterate stays within f32
-    round-off accumulation of the x64 generic trajectory."""
-    from prost_tpu.ops import FusedROFPDHG
-
-    nx = ny = 16
-    lmb = 8.0 if dataterm == "square" else 1.2
-    opts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                       scale_steps_operator=False)
-    prob, _ = _rof_problem(nx, ny, lmb, dataterm, seed=3)
-    fused = FusedROFPDHG(prob.finalize(), opts, _tols(0), interpret=True)
-    assert fused.rof is not None
-    fs = fused.run(fused.initial_state(), _N_IT)
-
-    gx = _generic_x64_rof(nx, ny, lmb, dataterm, 3, _N_IT, opts)
-    assert _drift(fs.x, gx) < 2e-5
-
-
-def test_fused_multilabel_drift_vs_f64():
-    import sys, os
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_parallel import _ml_problem
-    from prost_tpu.ops import FusedROFPDHG
-
-    nx = ny = 12
-    L = 3
-    n = nx * ny
-    rng = np.random.RandomState(7)
-    f = rng.rand(n * L).astype(np.float32)
-    opts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                       scale_steps_operator=False)
-    fused = FusedROFPDHG(_ml_problem(nx, ny, L, f, 0.7), opts, _tols(0),
-                         interpret=True)
-    assert fused.ml is not None
-    fs = fused.run(fused.initial_state(), _N_IT)
-
-    with _x64():
-        core = _ml_problem(nx, ny, L, np.asarray(f, np.float64), 0.7)
-        backend = BackendPDHG(core, opts, _tols(0))
-        gs = backend.run(backend.initial_state(), _N_IT)
-        gx = np.asarray(gs.x, np.float64)
-    assert _drift(fs.x, gx) < 2e-5
-
-
-def test_fused_tight_drift_vs_f64():
-    import sys, os
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_fused_tight import tight_problem
-    from prost_tpu.ops import FusedROFPDHG
-
-    opts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                       scale_steps_operator=False)
-    fused = FusedROFPDHG(tight_problem(10, 10, L=3, lmb=1.0, seed=2),
-                         opts, _tols(0), interpret=True)
-    assert fused.tight is not None
-    fs = fused.run(fused.initial_state(), _N_IT)
-
-    with _x64():
-        core = tight_problem(10, 10, L=3, lmb=1.0, seed=2)
-        backend = BackendPDHG(core, opts, _tols(0))
-        gs = backend.run(backend.initial_state(), _N_IT)
-        gx = np.asarray(gs.x, np.float64)
-    assert _drift(fs.x, gx) < 2e-5
-
-
-def test_fused_vol_drift_vs_f64():
-    import sys, os
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_fused_vol import vol_problem
-    from prost_tpu.ops import FusedROFPDHG
-
-    L, nx, ny = 3, 12, 12
-    n = L * nx * ny
-    rng = np.random.RandomState(9)
-    f32 = rng.rand(n).astype(np.float32)
-    opts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                       scale_steps_operator=False)
-    fused = FusedROFPDHG(vol_problem(L, nx, ny, f32, 6.0), opts,
-                         _tols(0), interpret=True)
-    assert fused.vol is not None
-    fs = fused.run(fused.initial_state(), _N_IT)
-
-    with _x64():
-        core = vol_problem(L, nx, ny, np.asarray(f32, np.float64), 6.0)
-        backend = BackendPDHG(core, opts, _tols(0))
-        gs = backend.run(backend.initial_state(), _N_IT)
-        gx = np.asarray(gs.x, np.float64)
-    assert _drift(fs.x, gx) < 2e-5
-
-
-def test_fused_deblur_drift_vs_f64():
-    import sys, os
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_fused_deblur import deblur_problem
-    from prost_tpu.ops import FusedROFPDHG
-
-    nx = ny = 12
-    opts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                       scale_steps_operator=False)
-    prob32, _ = deblur_problem(nx, ny, lmb=30.0, seed=4)
-    fused = FusedROFPDHG(prob32, opts, _tols(0), interpret=True)
-    assert fused.deblur is not None
-    fs = fused.run(fused.initial_state(), _N_IT)
-
-    with _x64():
-        prob64, _ = deblur_problem(nx, ny, lmb=30.0, seed=4)
-        backend = BackendPDHG(prob64, opts, _tols(0))
-        gs = backend.run(backend.initial_state(), _N_IT)
-        gx = np.asarray(gs.x, np.float64)
-    assert _drift(fs.x, gx) < 5e-5
-
-
-def test_fused_admm_cheby_drift_vs_f64():
-    """The f32 fused Chebyshev-projection ADMM vs the x64 generic CGLS
-    ADMM: same outer algebra, inner solvers contract at the same rate on
-    the kappa<=2 preconditioned system."""
+def _run(structure, build):
     from prost_tpu.backend.admm import ADMMOptions, BackendADMM
-    from prost_tpu.ops import FusedROFADMM
 
-    nx = ny = 16
-    aopts = ADMMOptions(residual_iter=5, projection="cheby")
-    prob, _ = _rof_problem(nx, ny, 16.0, seed=6)
-    fused = FusedROFADMM(prob.finalize(), aopts, _tols(0), interpret=True)
-    assert fused.mode in ("cheby", "banded")
-    fs = fused.run(fused.initial_state(), 26)
+    if structure == "admm":
+        b = BackendADMM(build(), ADMMOptions(residual_iter=5), _tols(0))
+        return np.asarray(b.run(b.initial_state(), 26).x_half, np.float64)
+    opts = PDHGOptions(stepsize="boyd", residual_iter=5,
+                       scale_steps_operator=False)
+    b = BackendPDHG(build(), opts, _tols(0))
+    return np.asarray(b.run(b.initial_state(), _N_IT).x, np.float64)
 
+
+@pytest.mark.parametrize("structure,bound", [
+    ("rof", 2e-5), ("tvl1", 2e-5), ("multilabel", 2e-5), ("tight", 2e-5),
+    ("vol", 2e-5), ("deblur", 5e-5), ("admm", 5e-4)])
+def test_f32_drift_vs_f64(structure, bound):
+    """The float32 iterate stays within f32 round-off accumulation of the
+    x64 trajectory of the same program."""
+    build = _drift_problem(structure)
+    x32 = _run(structure, build)
     with _x64():
-        prob64, _ = _rof_problem(nx, ny, 16.0, seed=6)
-        backend = BackendADMM(prob64.finalize(),
-                              ADMMOptions(residual_iter=5), _tols(0))
-        gs = backend.run(backend.initial_state(), 26)
-        gx = np.asarray(gs.x_half, np.float64)
-    assert _drift(fs.x_half, gx) < 5e-4
+        x64 = _run(structure, build)
+    assert float(np.max(np.abs(x32 - x64))) < bound

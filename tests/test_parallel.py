@@ -4,27 +4,32 @@ the unsharded iteration."""
 
 import numpy as np
 import jax
-import jax.numpy as jnp
 import pytest
 
 import prost_tpu as pt
 from prost_tpu.backend import BackendPDHG, PDHGOptions
-from prost_tpu.linop import BlockGradient2D, LinearOperator
 from prost_tpu.parallel import BatchedPDHG, ShardedPDHG, make_mesh
-from prost_tpu.prox import ProxElem1D, ProxElemNorm2, ProxMoreau
+
+from problems import (deblur_problem, ml_problem, rof_problem, tight_problem,
+                      vol_problem)
+
+STRUCTURES = ["rof", "multilabel", "tight", "deblur", "vol"]
 
 
-def rof_problem(nx, ny, f, lmb):
-    n = nx * ny
-    grad = BlockGradient2D(row=0, col=0, nx=nx, ny=ny, L=1)
-    linop = LinearOperator.create([grad])
-    prox_g = [ProxElem1D(index=0, size=n, fun="square",
-                         coeffs=(1.0, f.astype(np.float32), lmb,
-                                 0.0, 0.0, 0.0, 0.0))]
-    pn = ProxElemNorm2(index=0, size=2 * n, count=n, dim=2, interleaved=False,
-                       fun="abs", coeffs=(1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0))
-    prox_fstar = [ProxMoreau(index=0, size=2 * n, child=pn)]
-    return pt.Problem.create(linop, prox_g=prox_g, prox_fstar=prox_fstar)
+def structure_problem(structure, nx, seed):
+    """One instance of ``structure`` on an nx x nx grid; instances with
+    different seeds differ in their data."""
+    rng = np.random.RandomState(seed)
+    n = nx * nx
+    if structure == "rof":
+        return rof_problem(nx, nx, rng.rand(n).astype(np.float32), 5.0)
+    if structure == "multilabel":
+        return ml_problem(nx, nx, 3, rng.rand(3 * n), 0.3 + 0.1 * seed)
+    if structure == "tight":
+        return tight_problem(nx, nx, L=3, lmb=1.0, seed=seed)
+    if structure == "deblur":
+        return deblur_problem(nx, nx, lmb=20.0 + 5.0 * seed, seed=seed)[0]
+    return vol_problem(3, nx, nx, rng.rand(3 * n), 6.0)
 
 
 def test_devices_available():
@@ -39,12 +44,9 @@ def _solver_opts():
     )
 
 
-def test_batched_matches_sequential():
-    nx = ny = 12
-    n = nx * ny
-    rng = np.random.RandomState(0)
-    fs = [rng.rand(n).astype(np.float32) for _ in range(4)]
-    problems = [rof_problem(nx, ny, f, 5.0) for f in fs]
+@pytest.mark.parametrize("structure", STRUCTURES)
+def test_batched_matches_sequential(structure):
+    problems = [structure_problem(structure, 12, seed) for seed in range(4)]
 
     batched = BatchedPDHG(problems, PDHGOptions(scale_steps_operator=False),
                           _solver_opts())
@@ -61,13 +63,10 @@ def test_batched_matches_sequential():
         np.testing.assert_allclose(xb[i], np.asarray(s.x), atol=1e-4)
 
 
-def test_batched_sharded_over_mesh():
-    nx = ny = 12
-    n = nx * ny
-    rng = np.random.RandomState(1)
+@pytest.mark.parametrize("structure", STRUCTURES)
+def test_batched_sharded_over_mesh(structure):
     mesh = make_mesh((8,), axis_names=("dp",))
-    fs = [rng.rand(n).astype(np.float32) for _ in range(8)]
-    problems = [rof_problem(nx, ny, f, 5.0) for f in fs]
+    problems = [structure_problem(structure, 12, seed) for seed in range(8)]
 
     batched = BatchedPDHG(problems, PDHGOptions(scale_steps_operator=False),
                           _solver_opts(), mesh=mesh)
@@ -83,12 +82,34 @@ def test_batched_sharded_over_mesh():
     np.testing.assert_allclose(xb[3], np.asarray(s.x), atol=1e-4)
 
 
-def test_sharded_spatial_matches_unsharded():
-    nx = ny = 16
-    n = nx * ny
-    rng = np.random.RandomState(2)
-    f = rng.rand(n).astype(np.float32)
-    prob = rof_problem(nx, ny, f, 5.0)
+def test_batched_repeated_run():
+    """BatchedPDHG.run() continues from the state it returned: the jitted
+    loop donates the state argument, not the batched problem data it
+    keeps, so a second run() works and matches one long run."""
+    problems = [structure_problem("rof", 12, seed) for seed in range(3)]
+    popts = PDHGOptions(stepsize="boyd", residual_iter=5,
+                        scale_steps_operator=False)
+    sopts = pt.SolverOptions(verbose=False, tol_rel_primal=0,
+                             tol_rel_dual=0, tol_abs_primal=0,
+                             tol_abs_dual=0)
+
+    one = BatchedPDHG(problems, popts, sopts)
+    once = one.run(one.initial_state(), 30)
+
+    two = BatchedPDHG(problems, popts, sopts)
+    s = two.run(two.initial_state(), 15)
+    s = two.run(s, 30)
+
+    np.testing.assert_array_equal(np.asarray(s.iteration), 30)
+    np.testing.assert_allclose(np.asarray(s.x), np.asarray(once.x),
+                               atol=5e-6)
+    np.testing.assert_allclose(np.asarray(s.y), np.asarray(once.y),
+                               atol=5e-6)
+
+
+@pytest.mark.parametrize("structure", STRUCTURES)
+def test_sharded_spatial_matches_unsharded(structure):
+    prob = structure_problem(structure, 16, 2)
     mesh = make_mesh((1, 8), axis_names=("dp", "sp"))
 
     opts = PDHGOptions(scale_steps_operator=False)
@@ -127,72 +148,6 @@ def test_sharded_spatial_full_solve_converges():
     assert res.result == pt.ConvergenceResult.CONVERGED
 
 
-def test_batched_fused_matches_generic_vmap():
-    """The batched fused Pallas path (vmap over the chunk kernel, per-
-    instance step sizes in SMEM) must reproduce the generic vmapped loop."""
-    nx = ny = 16
-    n = nx * ny
-    rng = np.random.RandomState(7)
-    problems = [rof_problem(nx, ny, rng.rand(n).astype(np.float32),
-                            float(lmb)) for lmb in (4.0, 8.0, 16.0)]
-    popts = PDHGOptions(stepsize="boyd", residual_iter=10,
-                        scale_steps_operator=False)
-    sopts = pt.SolverOptions(verbose=False, tol_rel_primal=0, tol_rel_dual=0,
-                             tol_abs_primal=0, tol_abs_dual=0)
-
-    gen = BatchedPDHG(problems, popts, sopts)
-    assert gen.rof is None  # CPU without interpret -> generic
-    gs = gen.run(gen.initial_state(), 60)
-
-    fus = BatchedPDHG(problems, popts, sopts, interpret=True)
-    assert fus.rof is not None
-    fs = fus.run(fus.initial_state(), 60)
-
-    np.testing.assert_array_equal(np.asarray(fs.iteration), 60)
-    np.testing.assert_allclose(np.asarray(fs.x), np.asarray(gs.x), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(fs.y), np.asarray(gs.y), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(fs.tau), np.asarray(gs.tau),
-                               rtol=1e-6)
-    for a, b in zip(fus.current_solution(fs), gen.current_solution(gs)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=5e-5)
-
-
-def test_batched_fused_multidevice_shard_map():
-    """Multi-device ensembles keep the fused Pallas path (BASELINE config
-    5's whole point): the batched chunk kernel runs under shard_map over
-    'dp', each device's grid covering its local instances, bit-compatible
-    with the 1-device fused path."""
-    from prost_tpu.parallel import make_mesh
-
-    nx = ny = 16
-    n = nx * ny
-    rng = np.random.RandomState(8)
-    problems = [rof_problem(nx, ny, rng.rand(n).astype(np.float32),
-                            float(lmb))
-                for lmb in (4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0, 48.0)]
-    popts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                        scale_steps_operator=False)
-    sopts = pt.SolverOptions(verbose=False, tol_rel_primal=0, tol_rel_dual=0,
-                             tol_abs_primal=0, tol_abs_dual=0)
-
-    one = BatchedPDHG(problems, popts, sopts, interpret=True)
-    assert one.rof is not None
-    os_ = one.run(one.initial_state(), 31)
-
-    mesh = make_mesh((4,), axis_names=("dp",))
-    multi = BatchedPDHG(problems, popts, sopts, mesh=mesh, interpret=True)
-    assert multi.rof is not None  # fused path must survive the mesh
-    ms = multi.run(multi.initial_state(), 31)
-
-    np.testing.assert_array_equal(np.asarray(ms.iteration), 31)
-    np.testing.assert_allclose(np.asarray(ms.x), np.asarray(os_.x),
-                               atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ms.y), np.asarray(os_.y),
-                               atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ms.tau), np.asarray(os_.tau),
-                               rtol=1e-6)
-
-
 def test_batched_indivisible_batch_raises():
     """B not divisible by the mesh size cannot be sharded evenly -> a
     clear ProstError at construction (device_put would fail obscurely)."""
@@ -208,7 +163,7 @@ def test_batched_indivisible_batch_raises():
                 for _ in range(3)]
     mesh = make_mesh((2,), axis_names=("dp",))
     with pytest.raises(ProstError):
-        BatchedPDHG(problems, mesh=mesh, interpret=True)
+        BatchedPDHG(problems, mesh=mesh)
 
 
 def test_sharded_spatial_collective_counts():
@@ -243,9 +198,8 @@ def test_sharded_spatial_collective_counts():
     n_allreduce = len(re.findall(r"\ball-reduce", hlo))
     # K and K^T each need one halo hop per stencil direction; XLA
     # splits start/done pairs and may emit per-operand permutes (measured
-    # 19 on the 8-device mesh — exactly why the hand-scheduled
-    # spatial_fused path, 2 ppermutes per CHUNK, exists).  Zero would
-    # mean no sharding happened at all.
+    # 19 on the 8-device mesh).  Zero would mean no sharding happened at
+    # all.
     assert 0 < n_permute <= 24, n_permute
     # the 4 residual norms + convergence scalars (XLA splits start/done
     # pairs; measured 13) — generous bound, the guarded regression is
@@ -254,326 +208,6 @@ def test_sharded_spatial_collective_counts():
     # Remaining all-gathers are the flat-layout reshards where y's
     # even 1-D sharding crosses the [gx; gy] block-row boundary (a
     # half-vector exchange, inherent to the flat-vector contract).
-    # Was 12 before fwd_diff_adjoint switched from jnp.take (a gather
-    # GSPMD can't partition) to static slices; must not regress.  The
-    # hand-scheduled spatial_fused path avoids ALL of this.
+    # fwd_diff_adjoint uses static slices, not jnp.take (a gather GSPMD
+    # can't partition, which gave 12); must not regress.
     assert n_allgather <= 6, f"{n_allgather} all-gathers in sharded step"
-
-
-def test_batched_banded_matches_whole_instance():
-    """Instances above the whole-instance VMEM cap run the banded+batched
-    kernel (grid = (B, n_bands)) — must be bit-compatible with the
-    whole-instance batched kernel."""
-    from prost_tpu.parallel.ensemble import BatchedPDHG
-
-    rng = np.random.RandomState(21)
-    nx, ny = 128, 32
-    probs = [rof_problem(nx, ny, rng.rand(nx * ny).astype(np.float32),
-                         float(l)) for l in (8.0, 12.0, 16.0)]
-    popts = PDHGOptions(stepsize="boyd", residual_iter=10,
-                        scale_steps_operator=False)
-
-    ref = BatchedPDHG(probs, popts, _solver_opts(), interpret=True)
-    assert ref.rof is not None and ref.rof["n_bands"] == 1
-    rs = ref.run(ref.initial_state(), 41)
-
-    ban = BatchedPDHG(probs, popts, _solver_opts(), interpret=True)
-    ban.rof["n_bands"] = 4  # force the banded+batched route
-    bs = ban.run(ban.initial_state(), 41)
-
-    np.testing.assert_array_equal(np.asarray(bs.x), np.asarray(rs.x))
-    # y to <= 1 ulp: the maskless-adjoint whole-instance kernel and the
-    # masked banded kernel are algebraically identical on clean duals,
-    # but interpret-mode XLA clusters the ball projection's fma/rsqrt
-    # differently per shape, flipping the last ulp at saturation cells
-    # (x stays bitwise equal; cf. the tiled test's 3e-7 precedent)
-    np.testing.assert_allclose(np.asarray(bs.y), np.asarray(rs.y),
-                               atol=3e-7, rtol=3e-7)
-    np.testing.assert_allclose(np.asarray(bs.tau), np.asarray(rs.tau),
-                               rtol=1e-7)
-
-
-def _ml_problem(nx, ny, L, f_lin, lmb, d_s=1.0):
-    """Fast-multilabel problem (cf. examples/example_multilabel_fast.py)."""
-    import prost_tpu as pt
-    from prost_tpu import block, function
-
-    n = nx * ny
-    u = pt.Variable(n * L)
-    q = pt.Variable(2 * n * L)
-    s = pt.Variable(n)
-    prob = pt.MinMaxProblem([u], [q, s])
-    prob.add_function(u, function.sum_1d("ind_geq0", 1, 0, 1, f_lin, 0))
-    prob.add_function(q, function.sum_norm2(2 * L, False, "ind_leq0",
-                                            1 / lmb, 1, 1))
-    prob.add_function(s, function.sum_1d("zero", 1, 0, 1, d_s, 0))
-    prob.add_dual_pair(u, q, block.gradient2d(nx, ny, L))
-    prob.add_dual_pair(u, s, block.sparse_kron_id(np.ones((1, L)), n))
-    return prob.finalize()
-
-
-def test_batched_fused_multilabel_matches_generic_vmap():
-    """The batched fused MULTILABEL path (grid = (B,) gridded ml chunk
-    kernel, per-instance radius/d_s/step sizes in SMEM) must reproduce
-    the generic vmapped loop — the many-instance segmentation workload
-    (VERDICT r3 task 6)."""
-    nx = ny = 16
-    L = 3
-    n = nx * ny
-    rng = np.random.RandomState(9)
-    problems = [
-        _ml_problem(nx, ny, L, rng.rand(n * L).astype(np.float32),
-                    float(lmb)) for lmb in (0.3, 0.5, 0.8)
-    ]
-    popts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                        scale_steps_operator=False)
-    sopts = pt.SolverOptions(verbose=False, tol_rel_primal=0,
-                             tol_rel_dual=0, tol_abs_primal=0,
-                             tol_abs_dual=0)
-
-    gen = BatchedPDHG(problems, popts, sopts)
-    assert gen.rof is None and gen.ml is None  # CPU w/o interpret
-    gs = gen.run(gen.initial_state(), 41)
-
-    fus = BatchedPDHG(problems, popts, sopts, interpret=True)
-    assert fus.rof is None and fus.ml is not None
-    fs = fus.run(fus.initial_state(), 41)
-
-    np.testing.assert_array_equal(np.asarray(fs.iteration), 41)
-    np.testing.assert_allclose(np.asarray(fs.x), np.asarray(gs.x),
-                               atol=2e-5)
-    np.testing.assert_allclose(np.asarray(fs.y), np.asarray(gs.y),
-                               atol=2e-5)
-    np.testing.assert_allclose(np.asarray(fs.tau), np.asarray(gs.tau),
-                               rtol=1e-6)
-
-
-def test_batched_fused_multilabel_multidevice():
-    """The batched ml chunk kernel under shard_map over 'dp' (multi-device
-    segmentation ensembles keep the fused path)."""
-    from prost_tpu.parallel import make_mesh
-
-    nx = ny = 16
-    L = 3
-    n = nx * ny
-    rng = np.random.RandomState(10)
-    problems = [
-        _ml_problem(nx, ny, L, rng.rand(n * L).astype(np.float32), 0.5)
-        for _ in range(8)
-    ]
-    popts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                        scale_steps_operator=False)
-    sopts = pt.SolverOptions(verbose=False, tol_rel_primal=0,
-                             tol_rel_dual=0, tol_abs_primal=0,
-                             tol_abs_dual=0)
-
-    single = BatchedPDHG(problems, popts, sopts, interpret=True)
-    assert single.ml is not None
-    ss = single.run(single.initial_state(), 21)
-
-    mesh = make_mesh((4,), axis_names=("dp",))
-    multi = BatchedPDHG(problems, popts, sopts, mesh=mesh, interpret=True)
-    assert multi.ml is not None
-    ms = multi.run(multi.initial_state(), 21)
-
-    np.testing.assert_allclose(np.asarray(ms.x), np.asarray(ss.x),
-                               atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ms.y), np.asarray(ss.y),
-                               atol=1e-6)
-
-
-def test_batched_fused_deblur_matches_generic_vmap():
-    """The batched fused DEBLUR path (grid = (B,) gridded deblur chunk
-    kernel on embedded planes — deblurring B frames sharing one blur
-    kernel) must reproduce the generic vmapped loop."""
-    import sys
-    from test_fused_deblur import deblur_problem
-
-    nx = ny = 12
-    problems = [deblur_problem(nx, ny, lmb=float(lmb), seed=i)[0]
-                for i, lmb in enumerate((20.0, 35.0, 50.0))]
-    popts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                        scale_steps_operator=False)
-    sopts = pt.SolverOptions(verbose=False, tol_rel_primal=0,
-                             tol_rel_dual=0, tol_abs_primal=0,
-                             tol_abs_dual=0)
-
-    gen = BatchedPDHG(problems, popts, sopts)
-    assert gen.deblur is None  # CPU w/o interpret
-    gs = gen.run(gen.initial_state(), 31)
-
-    fus = BatchedPDHG(problems, popts, sopts, interpret=True)
-    assert fus.rof is None and fus.ml is None and fus.deblur is not None
-    fs = fus.run(fus.initial_state(), 31)
-
-    np.testing.assert_array_equal(np.asarray(fs.iteration), 31)
-    np.testing.assert_allclose(np.asarray(fs.x), np.asarray(gs.x),
-                               atol=5e-5)
-    np.testing.assert_allclose(np.asarray(fs.y), np.asarray(gs.y),
-                               atol=5e-5)
-    np.testing.assert_allclose(np.asarray(fs.tau), np.asarray(gs.tau),
-                               rtol=1e-6)
-
-
-def test_batched_fused_deblur_repeated_run():
-    """BatchedPDHG.run() must be callable repeatedly on the batched-deblur
-    path: the jitted chunk loop donates the STATE argument (not the
-    persistent per-instance coefficient arrays held in self.deblur), so a
-    second run() — continuing from the first run's returned state — must
-    not hit a deleted-array error and must match one long run."""
-    from test_fused_deblur import deblur_problem
-
-    nx = ny = 12
-    problems = [deblur_problem(nx, ny, lmb=float(lmb), seed=i)[0]
-                for i, lmb in enumerate((20.0, 35.0, 50.0))]
-    popts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                        scale_steps_operator=False)
-    sopts = pt.SolverOptions(verbose=False, tol_rel_primal=0,
-                             tol_rel_dual=0, tol_abs_primal=0,
-                             tol_abs_dual=0)
-
-    fus = BatchedPDHG(problems, popts, sopts, interpret=True)
-    assert fus.deblur is not None
-    once = fus.run(fus.initial_state(), 30)
-
-    two = BatchedPDHG(problems, popts, sopts, interpret=True)
-    s = two.run(two.initial_state(), 15)
-    s = two.run(s, 30)  # second call: donated buffers must not be reused
-
-    np.testing.assert_array_equal(np.asarray(s.iteration), 30)
-    np.testing.assert_allclose(np.asarray(s.x), np.asarray(once.x),
-                               atol=5e-6)
-    np.testing.assert_allclose(np.asarray(s.y), np.asarray(once.y),
-                               atol=5e-6)
-
-
-def test_batched_fused_tight_matches_generic_vmap():
-    """The batched fused TIGHT path (grid = (B,) gridded tight chunk
-    kernel — B tight-relaxation instances sharing (L, k, taps, consts))
-    must reproduce the generic vmapped loop (round-4 verdict, weak #5:
-    the last two cells of the structure x composition matrix)."""
-    from test_fused_tight import tight_problem
-
-    nx = ny = 12
-    problems = [tight_problem(nx, ny, L=3, lmb=1.0, seed=i)
-                for i in range(3)]
-    popts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                        scale_steps_operator=False)
-    sopts = pt.SolverOptions(verbose=False, tol_rel_primal=0,
-                             tol_rel_dual=0, tol_abs_primal=0,
-                             tol_abs_dual=0)
-
-    gen = BatchedPDHG(problems, popts, sopts)
-    assert gen.tight is None  # CPU w/o interpret
-    gs = gen.run(gen.initial_state(), 31)
-
-    fus = BatchedPDHG(problems, popts, sopts, interpret=True)
-    assert fus.rof is None and fus.ml is None and fus.deblur is None
-    assert fus.tight is not None
-    fs = fus.run(fus.initial_state(), 31)
-
-    np.testing.assert_array_equal(np.asarray(fs.iteration), 31)
-    np.testing.assert_allclose(np.asarray(fs.x), np.asarray(gs.x),
-                               atol=5e-5)
-    np.testing.assert_allclose(np.asarray(fs.y), np.asarray(gs.y),
-                               atol=5e-5)
-    np.testing.assert_allclose(np.asarray(fs.tau), np.asarray(gs.tau),
-                               rtol=1e-6)
-
-
-def test_batched_fused_tight_multidevice():
-    """The batched tight chunk kernel under shard_map over 'dp'."""
-    from prost_tpu.parallel import make_mesh
-    from test_fused_tight import tight_problem
-
-    nx = ny = 12
-    problems = [tight_problem(nx, ny, L=3, lmb=1.0, seed=i)
-                for i in range(4)]
-    popts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                        scale_steps_operator=False)
-    sopts = pt.SolverOptions(verbose=False, tol_rel_primal=0,
-                             tol_rel_dual=0, tol_abs_primal=0,
-                             tol_abs_dual=0)
-
-    single = BatchedPDHG(problems, popts, sopts, interpret=True)
-    assert single.tight is not None
-    ss = single.run(single.initial_state(), 21)
-
-    mesh = make_mesh((4,), axis_names=("dp",))
-    multi = BatchedPDHG(problems, popts, sopts, mesh=mesh, interpret=True)
-    assert multi.tight is not None
-    ms = multi.run(multi.initial_state(), 21)
-
-    np.testing.assert_allclose(np.asarray(ms.x), np.asarray(ss.x),
-                               atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ms.y), np.asarray(ss.y),
-                               atol=1e-6)
-
-
-def test_batched_fused_vol_matches_generic_vmap():
-    """The batched fused VOL path (grid = (B,) gridded volumetric-TV
-    chunk kernel — B (L, nx, ny) volumes) must reproduce the generic
-    vmapped loop."""
-    from test_fused_vol import vol_problem
-
-    L, nx, ny = 3, 12, 12
-    n = L * nx * ny
-    rng = np.random.RandomState(3)
-    problems = [vol_problem(L, nx, ny, rng.rand(n).astype(np.float32),
-                            float(lmb))
-                for lmb in (4.0, 8.0, 16.0)]
-    popts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                        scale_steps_operator=False)
-    sopts = pt.SolverOptions(verbose=False, tol_rel_primal=0,
-                             tol_rel_dual=0, tol_abs_primal=0,
-                             tol_abs_dual=0)
-
-    gen = BatchedPDHG(problems, popts, sopts)
-    assert gen.vol is None  # CPU w/o interpret
-    gs = gen.run(gen.initial_state(), 31)
-
-    fus = BatchedPDHG(problems, popts, sopts, interpret=True)
-    assert (fus.rof is None and fus.ml is None and fus.deblur is None
-            and fus.tight is None)
-    assert fus.vol is not None
-    fs = fus.run(fus.initial_state(), 31)
-
-    np.testing.assert_array_equal(np.asarray(fs.iteration), 31)
-    np.testing.assert_allclose(np.asarray(fs.x), np.asarray(gs.x),
-                               atol=5e-5)
-    np.testing.assert_allclose(np.asarray(fs.y), np.asarray(gs.y),
-                               atol=5e-5)
-    np.testing.assert_allclose(np.asarray(fs.tau), np.asarray(gs.tau),
-                               rtol=1e-6)
-
-
-def test_batched_fused_vol_multidevice():
-    """The batched vol chunk kernel under shard_map over 'dp'."""
-    from prost_tpu.parallel import make_mesh
-    from test_fused_vol import vol_problem
-
-    L, nx, ny = 3, 12, 12
-    n = L * nx * ny
-    rng = np.random.RandomState(4)
-    problems = [vol_problem(L, nx, ny, rng.rand(n).astype(np.float32),
-                            6.0)
-                for _ in range(4)]
-    popts = PDHGOptions(stepsize="boyd", residual_iter=5,
-                        scale_steps_operator=False)
-    sopts = pt.SolverOptions(verbose=False, tol_rel_primal=0,
-                             tol_rel_dual=0, tol_abs_primal=0,
-                             tol_abs_dual=0)
-
-    single = BatchedPDHG(problems, popts, sopts, interpret=True)
-    assert single.vol is not None
-    ss = single.run(single.initial_state(), 21)
-
-    mesh = make_mesh((4,), axis_names=("dp",))
-    multi = BatchedPDHG(problems, popts, sopts, mesh=mesh, interpret=True)
-    assert multi.vol is not None
-    ms = multi.run(multi.initial_state(), 21)
-
-    np.testing.assert_allclose(np.asarray(ms.x), np.asarray(ss.x),
-                               atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ms.y), np.asarray(ss.y),
-                               atol=1e-6)

@@ -15,9 +15,8 @@ import pytest
 
 import prost_tpu as pt
 from prost_tpu.backend import BackendPDHG, PDHGOptions
-from prost_tpu.config import ProstError
 
-from test_fused_rof import rof_problem, _opts
+from problems import rof_problem, zero_tol_opts
 from test_linop import spmat_gradient2d
 
 
@@ -100,7 +99,7 @@ def test_reference_mode_matches_numpy_transcription(ri):
     popts = PDHGOptions(stepsize="boyd", residual_iter=ri,
                         scale_steps_operator=False,
                         reference_residuals=True)
-    b = BackendPDHG(prob, popts, _opts())
+    b = BackendPDHG(prob, popts, zero_tol_opts())
     s = b.run(b.initial_state(), iters)
 
     assert int(s.iteration) == iters
@@ -127,24 +126,9 @@ def test_default_mode_differs_in_dual_residual():
     common = dict(stepsize="boyd", residual_iter=1,
                   scale_steps_operator=False)
     ref = BackendPDHG(prob, PDHGOptions(reference_residuals=True, **common),
-                      _opts())
-    dflt = BackendPDHG(prob, PDHGOptions(**common), _opts())
+                      zero_tol_opts())
+    dflt = BackendPDHG(prob, PDHGOptions(**common), zero_tol_opts())
     rs = ref.run(ref.initial_state(), 9)
     ds = dflt.run(dflt.initial_state(), 9)
     assert not np.isclose(float(rs.dual_residual), float(ds.dual_residual),
                           rtol=1e-3)
-
-
-def test_reference_mode_rejected_by_fused_paths():
-    from prost_tpu.ops import FusedROFPDHG
-    from prost_tpu.parallel import ShardedFusedROF, make_mesh
-
-    f = np.random.RandomState(6).rand(32 * 32).astype(np.float32)
-    prob = rof_problem(32, 32, f, 8.0)
-    popts = PDHGOptions(reference_residuals=True,
-                        scale_steps_operator=False)
-    fus = FusedROFPDHG(prob, popts, _opts(), interpret=True)
-    assert fus.rof is None  # falls back to the generic path
-    with pytest.raises(ProstError):
-        ShardedFusedROF(prob, popts, _opts(),
-                        make_mesh((2,), axis_names=("sp",)), interpret=True)
